@@ -21,8 +21,18 @@ CF_SHAPES = [(2, 1, 16, 20, 8, 32), (3, 2, 8, 10, 4, 8), (2, 3, 8, 12, 16, 48),
              (2, 2, 16, 20, 8, 20), (3, 2, 13, 17, 8, 32)]
 ROWS_SHAPES = [(2, 2, 8, 10, 48, 224), (4, 1, 16, 20, 24, 136),
                (2, 2, 16, 20, 8, 20), (3, 5, 13, 17, 16, 48)]
+# B=1 at the six main-path chain shapes (small tiles over many blocks), then
+# multi-tile ragged planes at B=1 with ragged widths: C=4, I = 20, 60, 84,
+# 136, and odd C and I (bf16 weights staged without 4-byte pairs).
+CUDA_SHAPES = [(1, 1, 128, 160, 4, 8), (1, 2, 64, 80, 8, 32), (1, 2, 32, 40, 8, 48),
+               (1, 4, 32, 40, 16, 96), (1, 4, 16, 20, 24, 136), (1, 5, 8, 10, 48, 224),
+               (1, 1, 29, 37, 4, 20), (1, 2, 23, 31, 8, 60), (1, 4, 19, 27, 24, 84),
+               (1, 3, 13, 17, 24, 136), (2, 2, 9, 11, 5, 17)]
 # 4 ulp of bf16 (8 significant bits: one ulp is at most 2^-7 of the value)
 BF16_TOL = 4 * 2.0 ** -7
+# chip_smoke.py's FLOAT64_SLACK: where the plain version misses 1e-4 of
+# float64, the kernel may be at most twice as far from float64
+FLOAT64_SLACK = 2.0
 
 
 @pytest.fixture(scope="module")
@@ -100,6 +110,16 @@ def test_plain_bf16_rounding_points():
     assert err <= BF16_TOL * np.abs(ref).max(), err
 
 
+def test_float64_reference_matches_plain():
+    """The float64 precision reference computes the chain the plain version
+    computes: at a well-conditioned shape the two agree to fp32's tolerance."""
+    x, st = _case((2, 3, 9, 11, 16, 40), 8)
+    exact = rb.res_chain_float64(torch.from_numpy(x), *map(torch.from_numpy, st))
+    plain = rb.fused_res_chain_nhwc(torch.from_numpy(x), *map(torch.from_numpy, st))
+    assert exact.dtype == torch.float64 and exact.shape == x.shape
+    np.testing.assert_allclose(plain.numpy(), exact.numpy(), rtol=1e-4, atol=1e-4)
+
+
 def test_chain_weights_from_folded_matches_jax(jax_rb):
     rng = np.random.default_rng(3)
     c, i = 8, 20
@@ -118,16 +138,45 @@ def test_chain_weights_from_folded_matches_jax(jax_rb):
         np.testing.assert_array_equal(a, t)
 
 
-@pytest.mark.parametrize("hwck", [(8, 10, 48, 5), (16, 20, 48, 5), (32, 40, 24, 4),
-                                  (64, 80, 16, 4), (128, 160, 8, 2), (256, 320, 4, 1),
-                                  (13, 17, 48, 5)])
-def test_pick_tile_fits_budget(hwck):
-    """Every main-path chain plane (and a ragged one) gets a tile within the
-    plane whose shared memory fits the budget."""
-    h, w, c, k = hwck
-    th, tw = rb.pick_tile(h, w, c, k)
-    assert 1 <= th <= h and 1 <= tw <= w
-    assert rb.smem_bytes(h, w, c, k, th, tw) <= rb.SMEM_BUDGET
+# (H, W, C, I, K) of the six chains at 256x320, at 512x640, then a ragged plane
+PLANES = [(128, 160, 4, 8, 1), (64, 80, 8, 32, 2), (32, 40, 8, 48, 2), (32, 40, 16, 96, 4),
+          (16, 20, 24, 136, 4), (8, 10, 48, 224, 5),
+          (256, 320, 4, 8, 1), (128, 160, 8, 32, 2), (64, 80, 8, 48, 2), (64, 80, 16, 96, 4),
+          (32, 40, 24, 136, 4), (16, 20, 48, 224, 5), (13, 17, 48, 136, 5)]
+N_SM = 132  # an H100's SMs
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("batch", [1, 64])
+@pytest.mark.parametrize("plane", PLANES)
+def test_pick_tile_fits_budget(plane, batch, itemsize):
+    """Every chain plane at both resolutions (and a ragged one) gets a tile within the
+    plane whose shared memory fits the budget and whose output region fits
+    the projection's registers; at B=1 the res1-res3 planes fill the SMs."""
+    h, w, c, i, k = plane
+    th, tw, nc, cluster = rb.pick_tile(h, w, c, i, k, batch, N_SM, itemsize)
+    assert 1 <= th <= h and 1 <= tw <= w and nc in (16, 32)
+    assert cluster in (1, 2, 4) and cluster <= -(-i // nc)
+    assert rb.smem_bytes(h, w, c, k, th, tw, nc, itemsize, cluster) <= rb.SMEM_BUDGET
+    assert min(h, th + 2 * (k - 1)) * min(w, tw + 2 * (k - 1)) <= rb.max_out_pixels(c)
+    if batch == 1 and h >= 32:
+        assert -(-h // th) * -(-w // tw) >= min(N_SM, h * w)
+
+
+def test_pick_tile_keeps_whole_plane_when_halo_covers_it():
+    """res5 at 256x320: a 5-pixel halo covers the 8x10 plane, so smaller
+    tiles only repeat work; one tile per image, and clusters of 4 CTAs split
+    its inner chunks to reach the SMs (64 or 1 tiles on 132 SMs)."""
+    assert rb.pick_tile(8, 10, 48, 224, 5, 64, N_SM, 4) == (8, 10, 32, 4)
+    assert rb.pick_tile(8, 10, 48, 224, 5, 1, N_SM, 4) == (8, 10, 32, 4)
+    # a full card takes no cluster
+    assert rb.pick_tile(8, 10, 48, 224, 5, 256, N_SM, 4)[3] == 1
+
+
+def test_kernel_rejects_wide_blocks():
+    """The projection keeps at most 48 output channels in registers."""
+    with pytest.raises(ValueError, match="C <= 48"):
+        rb.pick_tile(8, 8, 64, 64, 1)
 
 
 def test_cpu_takes_plain_version_and_counts_nothing():
@@ -155,10 +204,29 @@ def test_bad_shapes_raise():
                                 w3, b3, (6, 7))
 
 
+def _fp32_ratio(a, b):
+    """Worst ratio of |a - b| to the fp32 tolerance 1e-4 rel+abs."""
+    return float(np.max(np.abs(a - b) / (1e-4 + 1e-4 * np.abs(b))))
+
+
+def _assert_fp32_close(got, ref, exact):
+    """fp32 on both sides (TF32 off in the plain version): within 1e-4
+    rel+abs of the plain version, summation order only.  A deep chain with
+    large weights can amplify fp32 rounding until the plain version itself
+    misses that against the float64 chain; there the kernel may be at most
+    FLOAT64_SLACK times as far from float64 as the plain version is."""
+    if _fp32_ratio(got, ref) <= 1.0:
+        return
+    r_plain, r_kern = _fp32_ratio(ref, exact), _fp32_ratio(got, exact)
+    assert r_plain > 1.0 and r_kern <= FLOAT64_SLACK * r_plain, (
+        f"kernel vs plain {_fp32_ratio(got, ref):.3g} of the tolerance; against float64: "
+        f"plain {r_plain:.3g}, kernel {r_kern:.3g}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows", [True, False])
-@pytest.mark.parametrize("shape", CF_SHAPES + ROWS_SHAPES + [(3, 1, 13, 17, 4, 8)])
+@pytest.mark.parametrize("shape", CF_SHAPES + ROWS_SHAPES + [(3, 1, 13, 17, 4, 8)] + CUDA_SHAPES)
 def test_cuda_kernel_matches_plain(shape, rows, dtype, cuda_device):
     x, st = _case(shape, 7)
     xt = torch.from_numpy(x).to(cuda_device, dtype)
@@ -177,8 +245,8 @@ def test_cuda_kernel_matches_plain(shape, rows, dtype, cuda_device):
     assert rb.LAUNCHES[key] == before[key] + 1
     got, ref = got.float().cpu().numpy(), ref.float().cpu().numpy()
     if dtype == torch.float32:
-        # fp32 on both sides (TF32 off in the plain version): summation order only
-        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+        exact = rb.res_chain_float64(torch.from_numpy(x), *map(torch.from_numpy, st))
+        _assert_fp32_close(got, ref, exact.numpy())
     else:
         # bf16: one-ulp rounding flips carried through K blocks, 4 ulp of max|y|
         assert np.abs(got - ref).max() <= BF16_TOL * np.abs(ref).max()
