@@ -5,20 +5,26 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``yolofastest_torch/kernels/csrc``, holds
-each kernel against its plain PyTorch version, runs the deployed detector
-(``Detector.run_raw``: uint8 frames in, detections out) on the golden
-fixtures at both resolutions and checks the golden boxes, then times the
-main path and the kernels.  Phases print one JSON line each, in order:
-device (after the raw ``nvidia-smi`` line), build, kernels, golden (the main
-path, whose kernel launches are counted), k1_path (the folded forward with
-its chains through the channels-first kernel), bf16, pruned, timing,
+It builds the CUDA kernels from ``yolofastest_torch/kernels/csrc`` (one
+``nvcc`` per source, all at once), holds each kernel against its plain
+PyTorch version, runs the deployed detector (``Detector.run_raw``: uint8
+frames in, detections out) on the golden fixtures at both resolutions and
+checks the golden boxes, drives every other entry point of the port (lite,
+TTA, sliced detection, streaming, the batcher and HTTP server, video with
+tracking) at full width, then times the main path and the kernels.  Phases
+print one JSON line each, in order: device (after the raw ``nvidia-smi``
+line), build, kernels, nms_kernel, golden (the main path, whose kernel
+launches are counted), k1_path (the folded forward with its chains through
+the channels-first kernel), bf16, pruned, lite, tta, sliced, timing (with
+the host return of a B=64 ``run_packed``), streaming, serve, video,
 kernel_timing; then the ``{"kernels": [...]}`` summary, and last
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  Every path resets the kernel launch
+counts before it runs and checks them after.
 
 Any failed check raises, so the script exits non-zero and prints no ok line;
-without a CUDA card it exits 2 at once.  It imports nothing of JAX and needs
-no cv2: the frames are built with numpy from ``tests/fixtures``.
+without a CUDA card it exits 2 at once.  It imports nothing of JAX.  The
+frames are built with numpy from ``tests/fixtures``; cv2 encodes the HTTP
+request's image and writes the synthetic video.
 """
 
 from __future__ import annotations
@@ -51,6 +57,11 @@ BF16_TOL = 4 * 2.0 ** -7  # of max|y|: 4 ulp of bf16 (8 significant bits)
 # a kernel that lost bits in its accumulation was 2.5-4x as far.
 FLOAT64_SLACK = 2.0
 K1_SOURCE = "yolofastest_torch/kernels/csrc/res_chain.cu"
+NMS_SOURCE = "yolofastest_torch/kernels/csrc/nms.cu"
+# float32 operations of one IOU and its two comparisons in the NMS kernel
+# (4 max/min, 2 x 3 for the clamped extents, 1 product, 2 x 5 for the
+# areas, 3 for the union, 1 division, 2 comparisons)
+NMS_PAIR_OPS = 27
 
 
 def emit(phase: str, **fields) -> None:
@@ -148,6 +159,66 @@ def device_busy(fn, reps: int):
     return busy / 1e3 / reps, busy / (end - spans[0][0])
 
 
+def tie_heads(io):
+    """The tie fixture of tests/test_torch_ops.py: all-zero logits but a fixed
+    objectness, so every candidate has the same conf and the corners land on
+    exact .5 values; one higher-conf candidate in image 0."""
+    heads = []
+    for (h, w) in io.head_hw:
+        a = np.zeros((2, h, w, io.num_out), np.float32)
+        a[..., 4::8] = 1.0
+        a[0, 0, 1, 8 + 4] = 3.0
+        heads.append(a)
+    return heads
+
+
+def overlap_batch(rng, b, k):
+    """Heavily overlapping boxes of two classes on a small field, with
+    invalid rows among the valid ones (conf order is the row order)."""
+    xy = rng.integers(0, 40, (b, k, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, xy + rng.integers(1, 30, (b, k, 2))], -1).astype(np.float32)
+    return boxes, rng.integers(0, 2, (b, k)).astype(np.int32), rng.random((b, k)) < 0.85
+
+
+def nms_bound(boxes, cls_idx, valid, keep):
+    """Least time (ms) and what bounds it for one NMS keep-mask call, from
+    this call's data.  Operations: one IOU and its comparisons for every pair
+    the greedy loop evaluates (each row i kept at its step, against every
+    later valid row of the image up to its last valid one) at the fp32 FMA
+    peak.  Bytes: boxes, classes and the valid mask read once, the keep mask
+    written once (22 bytes a candidate)."""
+    v = valid.cpu().numpy()
+    kp = keep.cpu().numpy()
+    pairs = 0
+    for b in range(v.shape[0]):
+        rows = np.flatnonzero(v[b])
+        if rows.size:
+            last = rows[-1]
+            later_valid = np.cumsum(v[b][::-1])[::-1]  # valid rows at or after i
+            for i in np.flatnonzero(kp[b][:last]):
+                pairs += int(later_valid[i + 1])
+    t_ops = pairs * NMS_PAIR_OPS / FMA_FLOPS
+    t_bytes = v.size * 22 / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", pairs
+
+
+def recall_iou(rows, golden, strict=True):
+    """Golden boxes found by a detection of the same class with IoU > 0.5
+    (>= 0.5 where ``strict`` is False)."""
+    found = 0
+    for g in golden:
+        ious = [box_iou(r[:4], g[1:5]) for r in rows[int(g[0])] if int(r[6]) == int(g[7])]
+        found += any(v > 0.5 if strict else v >= 0.5 for v in ious)
+    return found
+
+
+def rows_close(a, b) -> bool:
+    """Rows of one image through two batch sizes: fp32 sums in another order
+    (tests/test_serve.py:48-52)."""
+    return len(a) == len(b) and (not a or bool(np.allclose(np.asarray(a), np.asarray(b),
+                                                           rtol=1e-5, atol=1e-4)))
+
+
 def chain_bound(b, h, w, c, i, k, dtype_name):
     """Least time (ms) and what bounds it for one chain call.  Operations:
     K*4CI flops per pixel of 1x1 products at the rate of the kernel's route
@@ -176,9 +247,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from yolofastest_torch.configs import get_config
-    from yolofastest_torch.inference import Detector, detections_to_lists
-    from yolofastest_torch.kernels import _build
+    from yolofastest_torch.inference import (DetectionServer, Detector, DynamicBatcher,
+                                             IoUTracker, StreamingDetector, detect_video,
+                                             detections_to_lists, make_batch_fn, sliced_detect)
+    from yolofastest_torch.inference.detector import _merge_tta, image_to_net_input
+    from yolofastest_torch.kernels import LAUNCHES, _build, nms_keep, nms_keep_plain
+    from yolofastest_torch.kernels import nms as nms_kernel
     from yolofastest_torch.kernels import res_block as rb
+    from yolofastest_torch.ops import decode_heads, normalize
     from yolofastest_torch.models import (RES_CHAINS, FoldedExecutor, fold_batchnorm,
                                           load_variables, torch_params_from_folded,
                                           walk_topology)
@@ -307,11 +383,81 @@ def main() -> int:
     check(launched["res_chain_rows"] == launched["res_chain_cf"] == 2 * len(cases),
           f"kernel launch counts {launched}")
 
+    # --------------------------------------------------------- 3b nms kernel
+    # Bit for bit against the plain loop (on the card too): the candidates of
+    # the golden frames at both resolutions (and the doubled K of TTA), the
+    # tie fixture of tests/test_torch_ops.py, and 200 random batches of
+    # heavily overlapping boxes of two classes under both IOU conventions.
+    def candidates(res, heads=None, tta=False):
+        io = get_config(res).io
+        if heads is None:
+            d = Detector(get_config(res), variables=load_variables(
+                os.path.join(WEIGHTS, f"yolofastest_{res}.npz")), device="cuda", tta=tta)
+            fr = make_frames(np.load(os.path.join(FIXTURES, f"golden_{res}.npz"))["pre_imgs"])
+            with torch.inference_mode():
+                heads = d.forward_heads(d.preprocess(fr))
+                cand = decode_heads(heads, io.anchors, io.input_hw, io.conf_thre, io.max_decode)
+                if tta:
+                    cand = _merge_tta(*cand, float(io.input_hw[1]))
+            return cand, io.nms_thre
+        heads = [torch.from_numpy(h).to(dev) for h in heads]
+        return decode_heads(heads, io.anchors, io.input_hw, io.conf_thre, io.max_decode), \
+            io.nms_thre
+
+    nms_sets = {f"golden_{res}": candidates(res) for res in ("256x320", "512x640")}
+    nms_sets["golden_256x320_tta"] = candidates("256x320", tta=True)
+    nms_sets["ties"] = candidates("256x320", heads=tie_heads(get_config("256x320").io))
+    rb.reset_launch_counts()
+    nms_checks, mismatched = 0, 0
+    per_set = {}
+    for name, ((boxes, _, _, cls_idx, valid), thre) in nms_sets.items():
+        for off in (0.0, 1.0):
+            got = nms_keep(boxes, cls_idx, valid, thre, off)
+            want = nms_keep_plain(boxes, cls_idx, valid, thre, off)
+            bad = int((got != want).sum())
+            per_set[f"{name}/offset{int(off)}"] = {"shape": list(valid.shape), "kept": int(got.sum()),
+                                                  "mismatches": bad}
+            mismatched += bad
+            nms_checks += 1
+    rng_nms = np.random.default_rng(1)
+    random_kept = 0
+    for _ in range(200):
+        boxes, cls_idx, valid = (torch.from_numpy(a).to(dev)
+                                 for a in overlap_batch(rng_nms, 8, 128))
+        for off in (0.0, 1.0):
+            got = nms_keep(boxes, cls_idx, valid, 0.4, off)
+            want = nms_keep_plain(boxes, cls_idx, valid, 0.4, off)
+            mismatched += int((got != want).sum())
+            random_kept += int(got.sum())
+            nms_checks += 1
+    torch.cuda.synchronize()
+    nms_launches = LAUNCHES["nms_keep"]
+    emit("nms_kernel", checks=nms_checks, mismatches=mismatched, launches=nms_launches,
+         sets=per_set, random={"batches": 200, "shape": [8, 128], "iou_thre": 0.4,
+                               "pixel_offsets": [0, 1], "kept": random_kept},
+         tolerance="bit for bit against nms_keep_plain on the card")
+    check(mismatched == 0, f"NMS kernel differs from the plain loop in {mismatched} places")
+    check(nms_launches == nms_checks, f"NMS launches {nms_launches} for {nms_checks} checks")
+
     # ---------------------------------------------- 4 golden, the main path
-    def detector(res, dtype=torch.float32, weights=None):
+    def detector(res, dtype=torch.float32, weights=None, **kwargs):
         path = os.path.join(WEIGHTS, f"yolofastest_{weights or res}.npz")
         return Detector(get_config(res), variables=load_variables(path),
-                        compute_dtype=dtype, device="cuda")
+                        compute_dtype=dtype, device="cuda", **kwargs)
+
+    def counted(fn):
+        """Run one path with every launch count set to 0 just before it;
+        returns its result and the counts read just after."""
+        rb.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(LAUNCHES)
+
+    def check_path(name, counts, forwards):
+        check(counts["res_chain_rows"] == 6 * forwards and counts["nms_keep"] == forwards
+              and counts["res_chain_cf"] == 0,
+              f"{name}: kernel launches {counts}, want 6 chains and 1 NMS per forward "
+              f"({forwards} forwards)")
 
     fixtures = {res: np.load(os.path.join(FIXTURES, f"golden_{res}.npz"))
                 for res in ("256x320", "512x640")}
@@ -327,8 +473,9 @@ def main() -> int:
         golden[res] = {"matched": matched, "reference": int(fx["boxes"].shape[0]),
                        "detections": sum(len(r) for r in rows), "notes": notes[:5],
                        "launches_after": counts}
-        check(counts["res_chain_rows"] == 6 * n_fwd and counts["res_chain_cf"] == 0,
-              f"{res}: chain kernel launches {counts}, want 6 per forward")
+        check(counts["res_chain_rows"] == 6 * n_fwd and counts["res_chain_cf"] == 0
+              and counts["nms_keep"] == n_fwd,
+              f"{res}: kernel launches {counts}, want 6 chains and 1 NMS per forward")
     main_path_launches = dict(rb.LAUNCHES)
     emit("golden", dtype="float32", results=golden, launches=main_path_launches)
     for res, g in golden.items():
@@ -366,7 +513,8 @@ def main() -> int:
          need=int(0.9 * n_imgs), detections=sum(len(r) for r in rows),
          reference=int(sum(ref_counts)), launches=dict(rb.LAUNCHES))
     check(agree >= int(0.9 * n_imgs), f"bf16 count rule: {agree}/{n_imgs}")
-    check(rb.LAUNCHES["res_chain_rows"] == 6, f"bf16 launches {rb.LAUNCHES}")
+    check(rb.LAUNCHES["res_chain_rows"] == 6 and rb.LAUNCHES["nms_keep"] == 1,
+          f"bf16 launches {rb.LAUNCHES}")
 
     # -------------------------------------------------------------- 6 pruned
     # The JAX package records 34/34 for this checkpoint by the golden suite's
@@ -374,7 +522,9 @@ def main() -> int:
     # +-3 px rule of tests/test_detect_parity.py:195-202 it scores 27/34 on
     # the CPU, as the port does.  The gate is the suite's rule; both print.
     det = detector("256x320", weights="pruned040_256x320")
-    rows = detections_to_lists(det.run_raw(make_frames(fx["pre_imgs"])))
+    out, counts = counted(lambda: det.run_raw(make_frames(fx["pre_imgs"])))
+    check_path("pruned", counts, 1)
+    rows = detections_to_lists(out)
     n_ref = len(fx["boxes"])
     by_iou = sum(any(int(r[6]) == int(g[7]) and box_iou(r[:4], g[1:5]) > 0.5
                      for r in rows[int(g[0])]) for g in fx["boxes"])
@@ -383,8 +533,69 @@ def main() -> int:
     emit("pruned", weights="yolofastest_pruned040_256x320.npz", dtype="float32",
          recall_iou_0_5=f"{by_iou}/{n_ref}", need=">= 90% by IoU > 0.5 and class",
          recall_within_3px=f"{by_px}/{n_ref}", jax_cpu_within_3px=f"27/{n_ref}",
-         detections=sum(len(r) for r in rows))
+         detections=sum(len(r) for r in rows), launches=counts)
     check(by_iou >= 0.9 * n_ref, f"pruned recall {by_iou}/{n_ref} (IoU > 0.5)")
+
+    # ---------------------------------------------------------------- 6b lite
+    # The single-head lite zoo at both resolutions through run_raw: >= 90% of
+    # the golden boxes by class and IoU > 0.5 (tests/test_lite_zoo.py:48-58).
+    lite = {}
+    for res in ("256x320", "512x640"):
+        fxr = fixtures[res]
+        det = detector(f"lite-{res}", weights=f"lite_{res}", arch="lite")
+        out, counts = counted(lambda: det.run_raw(make_frames(fxr["pre_imgs"])))
+        rows = detections_to_lists(out)
+        found = recall_iou(rows, fxr["boxes"])
+        lite[res] = {"recall_iou_0_5": f"{found}/{len(fxr['boxes'])}",
+                     "detections": sum(len(r) for r in rows), "launches": counts}
+        check_path(f"lite {res}", counts, 1)
+        check(found >= 0.9 * len(fxr["boxes"]), f"lite {res} recall {found}/{len(fxr['boxes'])}")
+    emit("lite", dtype="float32", need=">= 90% by IoU > 0.5 and class", results=lite)
+
+    # ----------------------------------------------------------------- 6c tta
+    # Flip TTA: the frames and their mirror as one doubled batch through the
+    # six chains, golden recall 34/34 (class, IoU >= 0.5: tests/test_tta.py:
+    # 107-115), and flip-equivariance on 4 frames (tests/test_tta.py:63-79).
+    det_tta = detector("256x320", tta=True)
+    out, tta_counts = counted(lambda: det_tta.run_raw(make_frames(fx["pre_imgs"])))
+    rows = detections_to_lists(out)
+    tta_found = recall_iou(rows, fx["boxes"], strict=False)
+    x4 = torch.from_numpy((fx["pre_imgs"][:4].astype(np.float32)[..., None] - 128.0) / 255.0).to(dev)
+    a = detections_to_lists(det_tta.run(x4))
+    bm = detections_to_lists(det_tta.run(x4.flip(2)))
+    w_net = get_config("256x320").io.input_hw[1]
+    equivariant = all(
+        len(ra) == len(rb_) > 0 and all(
+            any(int(da[6]) == int(db[6]) and np.allclose(da[4:6], db[4:6], rtol=1e-3)
+                and np.allclose(da[:4], [w_net - db[2], db[1], w_net - db[0], db[3]], atol=1.0)
+                for db in rb_) for da in ra)
+        for ra, rb_ in zip(a, bm))
+    emit("tta", res="256x320", dtype="float32", recall_iou_0_5=f"{tta_found}/{len(fx['boxes'])}",
+         flip_equivariant_on_4=equivariant, detections=sum(len(r) for r in rows),
+         launches=tta_counts)
+    check_path("tta", tta_counts, 1)
+    check(tta_found == len(fx["boxes"]), f"TTA recall {tta_found}/{len(fx['boxes'])}")
+    check(equivariant, "TTA detections of mirrored frames are not each other's mirrors")
+
+    # -------------------------------------------------------------- 6d sliced
+    # One 1024x1280 frame of four golden frames, over a 2x2 grid: the card's
+    # detections equal the CPU's within 1 px, with the same classes.
+    big = np.concatenate([np.concatenate(list(make_frames(fx["pre_imgs"][i:i + 2])), 1)
+                          for i in (0, 2)], 0)
+    det_cpu = Detector(get_config("256x320"), variables=load_variables(
+        os.path.join(WEIGHTS, "yolofastest_256x320.npz")), device="cpu")
+    det = detector("256x320")
+    on_card, sliced_counts = counted(lambda: sliced_detect(det, big, (2, 2), 0.2))
+    on_cpu = sliced_detect(det_cpu, big, (2, 2), 0.2)
+    unmatched = [b.tolist() for b, c in zip(on_card["boxes"], on_card["cls_idx"])
+                 if not any(int(c) == int(c2) and np.abs(b - b2).max() <= 1.0
+                            for b2, c2 in zip(on_cpu["boxes"], on_cpu["cls_idx"]))]
+    emit("sliced", frame=list(big.shape), grid=[2, 2], overlap=0.2, detections=on_card["count"],
+         cpu_detections=on_cpu["count"], unmatched=unmatched[:5], launches=sliced_counts)
+    check_path("sliced", sliced_counts, 1)
+    check(on_card["count"] == on_cpu["count"] > 0 and not unmatched,
+          f"sliced: {on_card['count']} detections on the card, {on_cpu['count']} on the CPU, "
+          f"unmatched {unmatched[:3]}")
 
     # -------------------------------------------------------------- 7 timing
     class TimedExecutor(FoldedExecutor):
@@ -453,9 +664,198 @@ def main() -> int:
                 "wall_ms": wall, "images_per_s": b / (sum(split) / 1e3),
                 "forward_layers_ms": layers, "device_busy_ms": busy_ms,
                 "device_busy_share": busy_share})
-    emit("timing", res="256x320", card=card, reps=20, runs=timing,
+    # The detect path reads nothing back to the host (the NMS keep mask is a
+    # kernel), so a B=64 run_packed returns before the card is done:
+    # torch's sync debug mode raises on any synchronising operation in it;
+    # the host's return time is set beside the card's time for the same call;
+    # and behind a 50 ms backlog on the card (torch.cuda._sleep) the call
+    # returns with the card still busy, where the plain NMS loop, swapped in
+    # for one call, waits for the backlog.
+    det = detector("256x320")
+    x64 = det.preprocess(torch.from_numpy(frames_all[np.arange(64) % n_imgs]).to(dev))
+    for _ in range(3):
+        det.run_packed(x64)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        det.run_packed(x64)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    host_ms = []  # one call on an idle card
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det.run_packed(x64)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()  # 20 calls back to back: the host's pace
+    for _ in range(20):
+        det.run_packed(x64)
+    steady_ms = (time.perf_counter() - t0) * 1e3 / 20
+    ev = torch.cuda.Event()
+    ev.record()
+    steady_busy = not ev.query()
+    torch.cuda.synchronize()
+    packed_cuda_ms = cuda_ms(lambda: det.run_packed(x64), 20)
+
+    def behind_backlog():
+        torch.cuda._sleep(100_000_000)  # ~50 ms of the card's clock
+        t0 = time.perf_counter()
+        det.run_packed(x64)
+        ms = (time.perf_counter() - t0) * 1e3
+        ev = torch.cuda.Event()
+        ev.record()
+        busy = not ev.query()
+        torch.cuda.synchronize()
+        return ms, busy
+
+    kernel_return = [behind_backlog() for _ in range(3)]
+    nms_kernel.nms_keep = nms_keep_plain
+    try:
+        plain_return = behind_backlog()
+    finally:
+        nms_kernel.nms_keep = nms_keep
+    host_return = {
+        "batch": 64, "dtype": "float32", "sync_debug_mode_error": "no synchronising operation",
+        "host_return_ms_idle_card": float(np.mean(host_ms)),
+        "host_ms_per_call_back_to_back": steady_ms, "cuda_ms": packed_cuda_ms,
+        "card_busy_after_20_back_to_back": steady_busy,
+        "behind_50ms_backlog": [{"host_return_ms": m, "card_busy_at_return": b}
+                                for m, b in kernel_return],
+        "plain_nms_behind_backlog": {"host_return_ms": plain_return[0],
+                                     "card_busy_at_return": plain_return[1]}}
+    emit("timing", res="256x320", card=card, reps=20, runs=timing, run_packed_host_return=host_return,
          device_busy="torch.profiler trace of 10 run_raw calls: union of device "
                      "intervals per call, and its share of the traced device span")
+    check(all(b for _, b in kernel_return), f"run_packed waited for the card: {kernel_return}")
+
+    # ----------------------------------------------------------- 7b streaming
+    # Golden frames tiled to B=64, 8 batches, depth 1, 2 and 4, sync and
+    # threaded: every packed result equals Detector.run_packed on the same
+    # batch; images/s over the run, and the card's busy share from a
+    # torch.profiler trace of a second run.
+    det = detector("256x320")
+    pre = fx["pre_imgs"]
+    batches = [pre[(np.arange(64) + 7 * k) % n_imgs].copy() for k in range(8)]
+    want = []
+    for frames in batches:
+        want.append(det.run_packed(normalize(torch.from_numpy(frames).to(dev))[..., None]).cpu().numpy())
+    streaming = []
+    for threaded in (False, True):
+        for depth in (1, 2, 4):
+            sd = StreamingDetector.over(det, depth=depth, threaded=threaded)
+            list(sd(iter(batches[:2])))  # warm the pinned buffers and the streams
+            torch.cuda.synchronize()
+            got, counts = counted(lambda: list(sd(iter(batches))))
+            t0 = time.perf_counter()
+            list(sd(iter(batches)))
+            wall = time.perf_counter() - t0
+            busy_ms, busy_share = device_busy(lambda: list(sd(iter(batches))), 1)
+            equal = len(got) == len(batches) and all(
+                np.array_equal(g["boxes"], w[..., 0:4]) and np.array_equal(g["conf"], w[..., 4])
+                and np.array_equal(g["cls_idx"], w[..., 6].astype(np.int32))
+                and np.array_equal(g["valid"], w[..., 7] > 0.5) for g, w in zip(got, want))
+            streaming.append({"depth": depth, "threaded": threaded,
+                              "images_per_s": 64 * len(batches) / wall, "wall_ms": wall * 1e3,
+                              "device_busy_ms": busy_ms, "device_busy_share": busy_share,
+                              "equal_to_run_packed": equal, "launches": counts})
+            check_path(f"streaming depth {depth} threaded={threaded}", counts, len(batches))
+            check(equal, f"streaming depth {depth} threaded={threaded}: results differ from "
+                         "Detector.run_packed")
+    emit("streaming", res="256x320", dtype="float32", batch=64, batches=len(batches), card=card,
+         runs=streaming, device_busy="torch.profiler trace of one 8-batch run")
+
+    # -------------------------------------------------------------- 7c serve
+    # A DynamicBatcher (max_batch 8, window 5 ms) under 32 client threads of
+    # 20 requests each: every reply equals Detector.run on that frame alone
+    # (fp32 sums in another order: rtol 1e-5, atol 1e-4).  Then one
+    # DetectionServer round trip on 127.0.0.1.
+    import threading
+    import urllib.request
+
+    import cv2
+
+    nets = (pre.astype(np.float32)[..., None] - 128.0) / 255.0
+    expect = [detections_to_lists(det.run(nets[i:i + 1]))[0] for i in range(n_imgs)]
+    batcher = DynamicBatcher(make_batch_fn(det), det.config.io.input_hw, max_batch=8,
+                             window_ms=5.0)
+    replies, errors = {}, []
+
+    def client(c):
+        try:
+            for r in range(20):
+                i = (7 * c + r) % n_imgs
+                replies[(c, r)] = (i, batcher.submit(nets[i]))
+        except BaseException as e:  # reported by the check below
+            errors.append(repr(e))
+
+    try:
+        def serve_all():
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(32)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            return time.perf_counter() - t0
+
+        serve_wall, serve_counts = counted(serve_all)
+        snap = batcher.snapshot()
+        wrong = [k for k, (i, rows) in replies.items() if not rows_close(rows, expect[i])]
+        frame = make_frames(pre[:1])[0]
+        body = cv2.imencode(".png", frame)[1].tobytes()
+        want_http = detections_to_lists(det.run(image_to_net_input(frame, det.config.io)[None]))[0]
+        server = DetectionServer(batcher, det.config, port=0)
+        server.start()
+        try:
+            req = urllib.request.Request(f"http://127.0.0.1:{server.port}/detect", data=body,
+                                         method="POST")
+            reply = json.load(urllib.request.urlopen(req, timeout=60))
+            health = json.load(urllib.request.urlopen(
+                f"http://127.0.0.1:{server.port}/healthz", timeout=60))
+        finally:
+            server.httpd.shutdown()
+            server.httpd.server_close()
+    finally:
+        batcher.close()
+    http_rows = [d["box_net"] + [d["conf"], d["cls_score"], d["cls"]] for d in reply["detections"]]
+    emit("serve", clients=32, requests_each=20, max_batch=8, window_ms=5.0, card=card,
+         requests_per_s=len(replies) / serve_wall, wall_s=serve_wall,
+         latency_ms=snap.get("latency_ms"), batches=snap["batches"],
+         batch_fill=snap["batch_fill"], errors=errors[:3], wrong_replies=len(wrong),
+         launches=serve_counts,
+         http={"status": health["status"], "count": reply["count"], "server_ms": reply["ms"],
+               "equal_to_run": rows_close(http_rows, want_http)})
+    check(not errors and len(replies) == 640 and not wrong,
+          f"serve: {len(replies)} replies, {len(wrong)} wrong, errors {errors[:3]}")
+    check_path("serve", serve_counts, snap["batches"])
+    check(rows_close(http_rows, want_http) and reply["count"] >= 1,
+          f"HTTP reply {http_rows} vs Detector.run {want_http}")
+
+    # -------------------------------------------------------------- 7d video
+    # A 64-frame synthetic video (8 golden frames, each held for 8 frames,
+    # MJPG) through detect_video with the IoU tracker.
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="yf_video_") as td:
+        src = os.path.join(td, "golden.avi")
+        writer = cv2.VideoWriter(src, cv2.VideoWriter_fourcc(*"MJPG"), 25.0, (640, 512))
+        check(writer.isOpened(), "cannot open a cv2.VideoWriter for the synthetic video")
+        for i in range(64):
+            writer.write(frames_all[(i // 8) % n_imgs])
+        writer.release()
+        stats, video_counts = counted(lambda: detect_video(
+            det, det.config, src, os.path.join(td, "out.avi"), batch_size=8, depth=2,
+            tracker=IoUTracker()))
+        written = cv2.VideoCapture(os.path.join(td, "out.avi"))
+        n_written = int(written.get(cv2.CAP_PROP_FRAME_COUNT))
+        written.release()
+    stats.pop("out")
+    emit("video", card=card, frames_written=n_written, launches=video_counts, **stats)
+    check(stats["frames"] == n_written == 64 and stats["tracks"] >= 1,
+          f"video: {stats['frames']} frames, {n_written} written, {stats.get('tracks')} tracks")
+    # the warm-up batch, then 8 batches of 8 frames
+    check_path("video", video_counts, 9)
 
     # ------------------------------------------------------- 8 kernel timing
     kt = []
@@ -491,8 +891,23 @@ def main() -> int:
                 tot["ops_bound_ms" if by == "operations" else "bytes_bound_ms"] += bound
             tot["rows_share_of_bound"] = tot["bound_ms"] / tot["rows_ms"]
             sums[f"{dname}/B{b}"] = tot
+    # The NMS keep mask on the golden frames' candidates (K = 128; TTA's 256)
+    # at B=1 and B=64, against the plain loop on the card.
+    nms_timing = []
+    for name in ("golden_256x320", "golden_256x320_tta"):
+        (boxes, _, _, cls_idx, valid), thre = nms_sets[name]
+        for b in (1, 64):
+            idx = torch.arange(b, device=dev) % boxes.shape[0]
+            bx, cl, va = boxes[idx].contiguous(), cls_idx[idx].contiguous(), valid[idx].contiguous()
+            kern_ms = cuda_ms(lambda: nms_keep(bx, cl, va, thre), 20)
+            plain_ms = cuda_ms(lambda: nms_keep_plain(bx, cl, va, thre), 5)
+            bound, by, pairs = nms_bound(bx, cl, va, nms_keep(bx, cl, va, thre))
+            nms_timing.append({"candidates": name, "B": b, "K": int(bx.shape[1]), "ms": kern_ms,
+                               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                               "iou_pairs": pairs, "share_of_bound": bound / kern_ms})
     emit("kernel_timing", card=card, res="256x320", n_sm=n_sm, library_ms=None,
-         library_note="no single PyTorch call computes a res chain", chains=kt, sums=sums)
+         library_note="no single PyTorch call computes a res chain or the greedy NMS keep mask",
+         chains=kt, sums=sums, nms=nms_timing)
 
     # ------------------------------------------------------- kernels summary
     f32 = sums["float32/B64"]
@@ -510,6 +925,15 @@ def main() -> int:
             "max_abs_err_bf16": worst[(key, "bfloat16")],
             "ms": ms, "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
             "bound_by": by, "library_ms": None, "at": at})
+    nms64 = next(t for t in nms_timing if t["candidates"] == "golden_256x320" and t["B"] == 64)
+    summary.append({
+        "name": "nms_keep", "route": "cuda", "source": NMS_SOURCE,
+        "replaces": "yolofastest_tpu/ops/nms.py:28 (nms_keep_mask: an XLA fori_loop, "
+                    "no Pallas kernel)",
+        "launches": main_path_launches["nms_keep"], "max_abs_err": 0.0 if mismatched == 0 else 1.0,
+        "mismatches": mismatched, "ms": nms64["ms"], "plain_ms": nms64["plain_ms"],
+        "bound_ms": nms64["bound_ms"], "bound_by": nms64["bound_by"], "library_ms": None,
+        "at": "keep mask of the golden 256x320 candidates tiled to B=64, K=128"})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -120,7 +120,8 @@ def test_no_device_without_card_raises(monkeypatch, setup):
 
 
 @pytest.mark.parametrize("kwargs", [{"fold_bn": False}, {"backend": "int8"},
-                                    {"arch": "lite"}, {"tta": True}])
+                                    {"backend": "int8-fused"},
+                                    {"fold_bn": False, "arch": "lite", "tta": True}])
 def test_unported_options_raise(kwargs, setup):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Detector(get_config("256x320"), variables=setup[0], device="cpu", **kwargs)
@@ -135,7 +136,11 @@ def test_package_imports_no_jax_package():
         "import sys\n"
         "import yolofastest_torch, yolofastest_torch.inference, yolofastest_torch.kernels\n"
         "import yolofastest_torch.cli, yolofastest_torch.cli.detect, yolofastest_torch.ops\n"
-        "import yolofastest_torch.models, yolofastest_torch.utils.logging\n"
+        "import yolofastest_torch.cli.serve, yolofastest_torch.kernels.nms\n"
+        "import yolofastest_torch.models, yolofastest_torch.models.prune\n"
+        "import yolofastest_torch.inference.streaming, yolofastest_torch.inference.server\n"
+        "import yolofastest_torch.inference.sliced, yolofastest_torch.inference.track\n"
+        "import yolofastest_torch.inference.video, yolofastest_torch.utils.logging\n"
         "import yolofastest_torch.utils.visualize\n"
         "bad = [m for m in sys.modules if 'flax' in m or 'yolofastest_tpu' in m]\n"
         "print(bad)\n"

@@ -1,10 +1,12 @@
-"""The port's res-chain kernels (``yolofastest_torch.kernels.res_block``).
+"""The port's kernels: the res chains (``yolofastest_torch.kernels.res_block``)
+and the NMS keep mask (``yolofastest_torch.kernels.nms``).
 
 On the CPU the wrappers run their plain PyTorch version; it is held against
 the JAX package's Pallas kernels in interpret mode, at the shapes of
-``tests/test_kernels.py`` plus a pruned width and a ragged plane.  The tests
-marked ``cuda`` hold the CUDA kernel against the plain version on the card
-and skip without one.  JAX is imported inside the fixture that needs it, so
+``tests/test_kernels.py`` plus a pruned width and a ragged plane (the NMS
+plain version is held against the JAX package in tests/test_torch_ops.py).
+The tests marked ``cuda`` hold each CUDA kernel against its plain version on
+the card and skip without one.  JAX is imported inside the fixture that needs it, so
 the ``cuda`` tests also run where JAX is not installed:
 ``python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py``.
 """
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from yolofastest_torch.kernels import nms as tnms_kernel
 from yolofastest_torch.kernels import res_block as rb
 
 # (B, K, H, W, C, I): tests/test_kernels.py's shapes, a pruned040 width
@@ -250,3 +253,53 @@ def test_cuda_kernel_matches_plain(shape, rows, dtype, cuda_device):
     else:
         # bf16: one-ulp rounding flips carried through K blocks, 4 ulp of max|y|
         assert np.abs(got - ref).max() <= BF16_TOL * np.abs(ref).max()
+
+
+# ---------------------------------------------------------------- NMS kernel
+def _nms_case(seed, b, k, n_cls=2):
+    """Heavily overlapping boxes on a small field, conf-descending, with
+    invalid rows among the valid ones."""
+    rng = np.random.default_rng(seed)
+    xy = rng.integers(0, 40, (b, k, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, xy + rng.integers(1, 30, (b, k, 2))], -1).astype(np.float32)
+    cls = rng.integers(0, n_cls, (b, k)).astype(np.int32)
+    valid = rng.random((b, k)) < 0.85
+    return boxes, cls, valid
+
+
+def test_nms_keep_on_cpu_is_the_plain_version():
+    boxes, cls, valid = (torch.from_numpy(a) for a in _nms_case(0, 3, 40))
+    before = dict(rb.LAUNCHES)
+    for off in (0.0, 1.0):
+        got = tnms_kernel.nms_keep(boxes, cls, valid, 0.45, off)
+        assert torch.equal(got, tnms_kernel.nms_keep_plain(boxes, cls, valid, 0.45, off))
+    assert rb.LAUNCHES == before  # no kernel on the CPU
+    with pytest.raises(ValueError, match="want boxes"):
+        tnms_kernel.nms_keep(boxes[..., :3], cls, valid, 0.45)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k", [(1, 128), (64, 128), (2, 256), (3, 37), (5, 1024)])
+@pytest.mark.parametrize("pixel_offset", [0.0, 1.0])
+def test_nms_kernel_matches_plain(cuda_device, b, k, pixel_offset):
+    """Bit for bit: the kernel's keep mask equals the plain loop's on the card."""
+    for seed in range(4):
+        boxes, cls, valid = (torch.from_numpy(a).to(cuda_device) for a in _nms_case(seed, b, k))
+        before = rb.LAUNCHES["nms_keep"]
+        got = tnms_kernel.nms_keep(boxes, cls, valid, 0.45, pixel_offset)
+        assert rb.LAUNCHES["nms_keep"] == before + 1
+        want = tnms_kernel.nms_keep_plain(boxes, cls, valid, 0.45, pixel_offset)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_nms_kernel_empty_and_all_invalid(cuda_device):
+    boxes, cls, valid = (torch.from_numpy(a).to(cuda_device) for a in _nms_case(9, 4, 128))
+    valid[1:] = False
+    got = tnms_kernel.nms_keep(boxes, cls, valid, 0.45)
+    assert torch.equal(got, tnms_kernel.nms_keep_plain(boxes, cls, valid, 0.45))
+    assert not got[1:].any()
+    with pytest.raises(ValueError, match="at most"):
+        tnms_kernel.nms_keep(*(t.repeat(1, 9, *([1] * (t.ndim - 2))) for t in (boxes, cls, valid)),
+                             0.45)

@@ -1,8 +1,10 @@
 """The port's ops (preprocess, boxes, decode, NMS) against the JAX package's,
 on the CPU, from the same numpy inputs."""
 
+import functools
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +21,20 @@ from yolofastest_tpu.ops import nms as jnms
 from yolofastest_tpu.ops import preprocess as jpre
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
+
+# The JAX references run jitted, as the JAX Detector runs them: one XLA
+# program each instead of one compile per primitive, with the same bits.
+# (preprocess_device stays op by op: XLA's fused (x - 128) / 255 rounds
+# differently, and the port holds the eager bits; its integer steps are
+# exact either way.)
+_jgray = jax.jit(jpre.bgr_to_gray)
+_jdown2x = jax.jit(jpre.downsample2x)
+_jresize = jax.jit(jpre.resize_bilinear, static_argnums=(1,))
+_jiou_matrix = jax.jit(jboxes.box_iou_matrix, static_argnums=(2,))
+_jiou_pairwise = jax.jit(jboxes.iou_pairwise, static_argnums=(2,))
+_jdecode = jax.jit(jdecode.decode_heads, static_argnums=(1, 2, 3, 4))
+_jbatched_nms = jax.jit(jnms.batched_nms, static_argnames=("iou_thre", "max_det", "packed"))
+_jkeep_mask = jax.jit(jnms.nms_keep_mask, static_argnums=(4, 5))
 
 
 def _np(t):
@@ -42,14 +58,14 @@ def test_preprocess_steps_bitwise():
     rng = np.random.default_rng(1)
     bgr = rng.integers(0, 256, (2, 30, 42, 3), dtype=np.uint8)
     gray = tpre.bgr_to_gray(torch.from_numpy(bgr))
-    np.testing.assert_array_equal(_np(gray), np.asarray(jpre.bgr_to_gray(jnp.asarray(bgr))))
+    np.testing.assert_array_equal(_np(gray), np.asarray(_jgray(jnp.asarray(bgr))))
     g = _np(gray)
     np.testing.assert_array_equal(_np(tpre.downsample2x(gray)),
-                                  np.asarray(jpre.downsample2x(jnp.asarray(g))))
+                                  np.asarray(_jdown2x(jnp.asarray(g))))
     for out_hw in [(17, 23), (45, 70)]:
         np.testing.assert_array_equal(
             _np(tpre.resize_bilinear(gray, out_hw)),
-            np.asarray(jpre.resize_bilinear(jnp.asarray(g), out_hw)))
+            np.asarray(_jresize(jnp.asarray(g), out_hw)))
     for dst in (7, 30, 61):
         for a, b in zip(tpre._cv2_linear_taps(30, dst), jpre._cv2_linear_taps(30, dst)):
             np.testing.assert_array_equal(a, b)
@@ -74,13 +90,13 @@ def test_iou_matrix(pixel_offset):
     wh = rng.integers(1, 30, (2, 9, 2)).astype(np.float32)
     b = np.concatenate([xy, xy + wh], -1)
     ours = tboxes.box_iou_matrix(torch.from_numpy(b), torch.from_numpy(b), pixel_offset)
-    theirs = jboxes.box_iou_matrix(jnp.asarray(b), jnp.asarray(b), pixel_offset)
+    theirs = _jiou_matrix(jnp.asarray(b), jnp.asarray(b), pixel_offset)
     # the same IEEE operations in the same order: equal bits
     np.testing.assert_array_equal(_np(ours), np.asarray(theirs))
     pair = tboxes.iou_pairwise(torch.from_numpy(b[0]), torch.from_numpy(b[1]), pixel_offset)
     np.testing.assert_array_equal(
-        _np(pair), np.asarray(jboxes.iou_pairwise(jnp.asarray(b[0]), jnp.asarray(b[1]),
-                                                  pixel_offset)))
+        _np(pair), np.asarray(_jiou_pairwise(jnp.asarray(b[0]), jnp.asarray(b[1]),
+                                             pixel_offset)))
 
 
 def test_box_formats():
@@ -113,20 +129,24 @@ def _tie_heads():
     return heads
 
 
-def _decode_both(heads, res):
+@functools.lru_cache(maxsize=None)
+def _decode_both(case):
+    """Both decodes of one case's heads, computed once per test module: the
+    decode and NMS tests share them (the JAX decode, op by op, is the slow
+    part).  Returns the case's preset and the two candidate sets."""
+    res = "256x320" if case == "ties" else case
+    heads = _tie_heads() if case == "ties" else _fixture_heads(case)
     io = get_config(res).io
     ours = tdecode.decode_heads([torch.from_numpy(h) for h in heads], io.anchors,
                                 io.input_hw, io.conf_thre, io.max_decode)
-    theirs = jdecode.decode_heads([jnp.asarray(h) for h in heads], io.anchors,
-                                  io.input_hw, io.conf_thre, io.max_decode)
-    return [_np(t) for t in ours], [np.asarray(t) for t in theirs]
+    theirs = _jdecode([jnp.asarray(h) for h in heads], io.anchors,
+                      io.input_hw, io.conf_thre, io.max_decode)
+    return res, [_np(t) for t in ours], [np.asarray(t) for t in theirs]
 
 
 @pytest.mark.parametrize("case", ["256x320", "512x640", "ties"])
 def test_decode_heads_matches(case):
-    res = "256x320" if case == "ties" else case
-    heads = _tie_heads() if case == "ties" else _fixture_heads(case)
-    ours, theirs = _decode_both(heads, res)
+    _, ours, theirs = _decode_both(case)
     (ob, oc, os_, oi, ov), (jb, jc, js, ji, jv) = ours, theirs
     # equal candidate sets in equal order: same valid mask, boxes, classes
     np.testing.assert_array_equal(ov, jv)
@@ -157,14 +177,12 @@ def test_round_half_to_even():
 def test_batched_nms_packed_matches(case):
     """The same candidates (the JAX decode's) through both NMS: equal packed
     output, kept rows first, and the dict form agrees with it."""
-    res = "256x320" if case == "ties" else case
-    heads = _tie_heads() if case == "ties" else _fixture_heads(case)
-    _, cand = _decode_both(heads, res)
+    res, _, cand = _decode_both(case)
     io = get_config(res).io
     ours = tnms.batched_nms(*(torch.from_numpy(np.array(c)) for c in cand),
                             iou_thre=io.nms_thre, max_det=io.max_det, packed=True)
-    theirs = jnms.batched_nms(*(jnp.asarray(c) for c in cand),
-                              iou_thre=io.nms_thre, max_det=io.max_det, packed=True)
+    theirs = _jbatched_nms(*(jnp.asarray(c) for c in cand),
+                           iou_thre=io.nms_thre, max_det=io.max_det, packed=True)
     np.testing.assert_array_equal(_np(ours), np.asarray(theirs))
     d = tnms.batched_nms(*(torch.from_numpy(np.array(c)) for c in cand),
                          iou_thre=io.nms_thre, max_det=io.max_det)
@@ -185,6 +203,6 @@ def test_nms_keep_mask_pixel_offset():
     for off in (0.0, 1.0):
         ours = tnms.nms_keep_mask(torch.from_numpy(b), torch.from_numpy(conf),
                                   torch.from_numpy(cls), torch.from_numpy(valid), 0.3, off)
-        theirs = jnms.nms_keep_mask(jnp.asarray(b), jnp.asarray(conf), jnp.asarray(cls),
-                                    jnp.asarray(valid), 0.3, off)
+        theirs = _jkeep_mask(jnp.asarray(b), jnp.asarray(conf), jnp.asarray(cls),
+                             jnp.asarray(valid), 0.3, off)
         np.testing.assert_array_equal(_np(ours), np.asarray(theirs))

@@ -1,8 +1,12 @@
 """Command-line interface: ``python -m yolofastest_torch <command>``.
 
-The port's subset of the JAX package's CLI:
+The port's subset of the JAX package's CLI (the fp backend):
 
-  detect    batch-detect a directory of images (fp32 folded graph)
+  detect    batch-detect a directory of images (also --tta, --sliced RxC)
+  serve     HTTP detection server with dynamic batching
+  video     detect over a video file -> annotated video (optionally tracked)
+
+Each takes ``--device cuda|cpu`` (default cuda).
 
 The other commands of ``python -m yolofastest_tpu`` are not ported yet
 (ROADMAP, "Modules": to port).
@@ -13,12 +17,14 @@ from __future__ import annotations
 import argparse
 
 from yolofastest_torch.cli.detect import add_detect_parser
+from yolofastest_torch.cli.serve import add_serve_parsers
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="yolofastest_torch")
     sub = p.add_subparsers(dest="command", required=True)
     add_detect_parser(sub)
+    add_serve_parsers(sub)
     return p
 
 

@@ -2,8 +2,11 @@
 decode -> NMS.
 
 The port of ``yolofastest_tpu/inference/detector.py`` for the deployed mode,
-``Detector(..., fold_bn=True)`` with the fp backend.  Everything after image
-load runs on the detector's device; the only host work is cv2 file IO.
+``Detector(..., fold_bn=True)`` with the fp backend, both architectures and
+flip TTA.  Everything after image load runs on the detector's device; the
+only host work is cv2 file IO.  On the card no step of the detect path reads
+back to the host, so :meth:`Detector.run_packed` returns before the card is
+done.
 
 * :meth:`Detector.run` / :meth:`Detector.run_packed`: normalised net-input
   batch -> detections.
@@ -23,7 +26,8 @@ import numpy as np
 import torch
 
 from yolofastest_torch.configs import Config
-from yolofastest_torch.models import fold_batchnorm, folded_apply, torch_params_from_folded
+from yolofastest_torch.models import (fold_batchnorm, folded_apply, folded_apply_lite,
+                                      torch_params_from_folded)
 from yolofastest_torch.ops import (batched_nms, decode_heads, preprocess_device,
                                    unpack_detections)
 from yolofastest_torch.utils.device import resolve_device
@@ -42,9 +46,15 @@ class Detector:
       logger: where :meth:`batch_detect` logs (default: print).
       fold_bn: must be True: the port runs the BN-folded graph.
       device: "cuda" (the default, which needs a card) or "cpu".
+      arch: ``"fastest"`` (two heads) or ``"lite"`` (one head; use a
+        ``lite-*`` config, whose one anchor group matches it).
+      tta: horizontal-flip test-time augmentation.  The batch and its mirror
+        run through the graph as ONE doubled batch (the six chain kernels
+        launch once each, on 2B images), the mirrored candidates are
+        un-mirrored, and both sets merge conf-sorted into one NMS.
 
     Not ported yet (ROADMAP, "Modules": to port): ``fold_bn=False`` (the
-    training model), the int8 backends, ``arch="lite"`` and ``tta=True``.
+    training model) and the int8 backends.
     """
 
     def __init__(
@@ -66,39 +76,44 @@ class Detector:
         if backend != "fp":
             raise NotImplementedError(
                 f"backend {backend!r} is not ported yet (ROADMAP: 'Quantisation')")
-        if arch != "fastest":
-            raise NotImplementedError(
-                f"arch {arch!r} is not ported yet (ROADMAP: 'Lite and pruned')")
-        if tta:
-            raise NotImplementedError(
-                "tta is not ported yet (ROADMAP: 'TTA and sliced')")
+        if arch not in ("fastest", "lite"):
+            raise ValueError(f"unknown arch {arch!r}")
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, not {compute_dtype}")
         self.config = config
+        self.tta = tta
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.logger = logger
         self.params = torch_params_from_folded(fold_batchnorm(variables), self.device,
                                                compute_dtype)
+        self._apply = folded_apply if arch == "fastest" else folded_apply_lite
         self._warm: set = set()
 
     # ------------------------------------------------------------------ core
     def _as_input(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
-    def forward_heads(self, images) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Net-input batch (B, H, W, 1) -> (head_large, head_small), NHWC."""
+    def forward_heads(self, images) -> Tuple[torch.Tensor, ...]:
+        """Net-input batch (B, H, W, 1) -> the heads, NHWC: (head_large,
+        head_small), or (head_small,) for the lite graph.  With TTA the batch
+        and its mirror go through as one (2B, H, W, 1) batch."""
         with torch.inference_mode():
-            return folded_apply(self.params, self._as_input(images), self.compute_dtype)
+            x = self._as_input(images)
+            if self.tta:
+                x = torch.cat([x, x.flip(2)], 0)
+            return _as_heads(self._apply(self.params, x, self.compute_dtype))
 
     def postprocess(self, heads, packed: bool = False):
-        """Heads -> decode -> NMS (dict, or the packed (B, max_det, 8) tensor)."""
+        """Heads -> decode (-> TTA merge) -> NMS (dict, or the packed
+        (B, max_det, 8) tensor)."""
         io = self.config.io
         with torch.inference_mode():
-            boxes, conf, cls_score, cls_idx, valid = decode_heads(
-                heads, io.anchors, io.input_hw, io.conf_thre, io.max_decode)
-            return batched_nms(boxes, conf, cls_score, cls_idx, valid,
-                               iou_thre=io.nms_thre, max_det=io.max_det, packed=packed)
+            cand = decode_heads(heads, io.anchors, io.input_hw, io.conf_thre, io.max_decode)
+            if self.tta:
+                cand = _merge_tta(*cand, float(io.input_hw[1]))
+            return batched_nms(*cand, iou_thre=io.nms_thre, max_det=io.max_det,
+                               packed=packed)
 
     def preprocess(self, bgr_batch) -> torch.Tensor:
         """(B, H0, W0, 3) uint8 BGR -> (B, H, W, 1) net input on the device."""
@@ -230,6 +245,35 @@ class Detector:
         avg = totals[0] / max(len(names), 1)
         log("detect avg_time: %.2fms" % avg)
         return avg
+
+
+def _merge_tta(boxes, conf, cls_score, cls_idx, valid, w: float):
+    """Merge a (2B, K, ...) candidate set from a [batch; mirrored batch]
+    forward into (B, 2K, ...): un-mirror the flipped half's x coordinates and
+    re-sort by confidence (the greedy NMS wants conf-descending input, and two
+    sorted halves side by side are not sorted).  The sort is stable, so tied
+    confidences keep index order, as ``lax.top_k`` keeps them."""
+    b = boxes.shape[0] // 2
+    bf = boxes[b:]
+    bf = torch.stack([w - bf[..., 2], bf[..., 1], w - bf[..., 0], bf[..., 3]], dim=-1)
+    boxes = torch.cat([boxes[:b], bf], dim=1)
+    conf = torch.cat([conf[:b], conf[b:]], dim=1)
+    cls_score = torch.cat([cls_score[:b], cls_score[b:]], dim=1)
+    cls_idx = torch.cat([cls_idx[:b], cls_idx[b:]], dim=1)
+    valid = torch.cat([valid[:b], valid[b:]], dim=1)
+    gated = torch.where(valid, conf, torch.full_like(conf, -1.0))
+    order = torch.sort(gated, dim=1, descending=True, stable=True).indices
+
+    def take(t):
+        idx = order[..., None].expand(-1, -1, t.shape[-1]) if t.ndim == 3 else order
+        return torch.gather(t, 1, idx)
+
+    return take(boxes), take(conf), take(cls_score), take(cls_idx), take(valid)
+
+
+def _as_heads(out):
+    """Normalise a graph output to a tuple of heads (lite returns one)."""
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
 
 
 def image_to_net_input(ori: np.ndarray, io) -> np.ndarray:

@@ -1,5 +1,6 @@
+from yolofastest_torch.kernels._build import LAUNCHES, reset_launch_counts
+from yolofastest_torch.kernels.nms import nms_keep, nms_keep_plain
 from yolofastest_torch.kernels.res_block import (
-    LAUNCHES,
     chain_weights_from_folded,
     fused_res_block,
     fused_res_chain,
@@ -8,7 +9,6 @@ from yolofastest_torch.kernels.res_block import (
     fused_res_chain_rows,
     res_chain_cf_plain,
     res_chain_rows_plain,
-    reset_launch_counts,
 )
 
 __all__ = [
@@ -19,6 +19,8 @@ __all__ = [
     "fused_res_chain_cf",
     "fused_res_chain_nhwc",
     "fused_res_chain_rows",
+    "nms_keep",
+    "nms_keep_plain",
     "res_chain_cf_plain",
     "res_chain_rows_plain",
     "reset_launch_counts",

@@ -29,10 +29,20 @@ BUILD_DIR = os.path.join(
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# Kernel launches by wrapper, so that a run can show that it went through the
+# kernels.  Process-wide; each wrapper adds one where it launches, and
+# nowhere else.
+LAUNCHES: Dict[str, int] = {"res_chain_cf": 0, "res_chain_rows": 0, "nms_keep": 0}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # ptxas' report (registers, shared memory, spills) of each library built by
 # this process, by name; empty for a library found already built.
 BUILD_LOGS: Dict[str, str] = {}
+
+
+def reset_launch_counts() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 def nvcc() -> str:

@@ -20,24 +20,23 @@ only for a CPU tensor; anything else raises.  The plain version has the
 kernel's rounding points: sums in fp32, ``h1``, ``h2`` and ``y`` rounded to
 the input dtype, weights cast to the input dtype, biases kept in fp32.
 
-:data:`LAUNCHES` counts kernel launches per wrapper, so that a run can show
-that it went through the kernel; it is process-wide state, reset with
-:func:`reset_launch_counts`.
+:data:`LAUNCHES` (from ``_build``, shared by every kernel of the port) counts
+kernel launches per wrapper, so that a run can show that it went through the
+kernel; it is process-wide state, reset with :func:`reset_launch_counts`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from yolofastest_torch.kernels._build import LAUNCHES, reset_launch_counts
 from yolofastest_torch.utils.device import exact_fp32
-
-LAUNCHES: Dict[str, int] = {"res_chain_cf": 0, "res_chain_rows": 0}
 
 # The kernel's fixed shape (csrc/res_chain.cu): 8 warps; each warp keeps
 # ACC_TILES (16 x 8) projection tiles in registers, so a block's output
@@ -50,11 +49,6 @@ SMEM_BUDGET = 113 * 1024  # shared memory per block: two blocks on one SM (228 K
 PAIR_RATE = 1.5
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PROJ_TILES = ((8, 1), (16, 2), (24, 3), (48, 6))  # C up to .. -> 8-column tiles
-
-
-def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
 
 
 # ------------------------------------------------------------- plain version

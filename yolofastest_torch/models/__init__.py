@@ -5,7 +5,10 @@ from yolofastest_torch.models.graph import (
     FoldedExecutor,
     fold_batchnorm,
     folded_apply,
+    folded_apply_lite,
+    unfold_to_variables,
     walk_topology,
+    walk_topology_lite,
 )
 from yolofastest_torch.models.zoo import load_variables, save_variables, zoo_path
 
@@ -15,9 +18,12 @@ __all__ = [
     "FoldedExecutor",
     "fold_batchnorm",
     "folded_apply",
+    "folded_apply_lite",
     "load_variables",
     "save_variables",
     "torch_params_from_folded",
+    "unfold_to_variables",
     "walk_topology",
+    "walk_topology_lite",
     "zoo_path",
 ]

@@ -7,7 +7,9 @@ the same float64 numpy fold (``kernel' = kernel * g``, ``bias' = bias - mean
 res blocks go to the executor as the six same-shape chains of
 :data:`RES_CHAINS` (``ex.res_chain``), so that :class:`FoldedExecutor` runs
 each chain as one kernel launch.  The base :class:`Executor` runs a chain
-block by block.
+block by block.  :func:`walk_topology_lite` is the single-head lite graph,
+grouped the same way, and :func:`unfold_to_variables` lifts a folded tree
+back to a variables tree.
 
 Tensors passed along the walk are NHWC, as in the JAX package; a torch
 convolution sees them as NCHW tensors in channels_last memory, which is the
@@ -69,6 +71,61 @@ def fold_batchnorm(variables: Dict[str, Any]) -> Dict[str, Dict[str, np.ndarray]
         else:
             out[name] = fold_one(p, stats[name])
     return out
+
+
+def _identity_bn_var() -> np.float32:
+    """The float32 running variance whose fold gain is closest to exactly 1:
+    :func:`fold_batchnorm` computes ``g = scale / sqrt(var + BN_EPS)`` in
+    float64, so this is the f32 ``var`` that minimises ``|sqrt(var + eps) -
+    1|`` (plain ``f32(1 - eps)`` carries its own rounding error, ~3e-8)."""
+    v = np.float32(1.0 - BN_EPS)
+    cands = [v]
+    lo = hi = v
+    for _ in range(4):
+        lo = np.nextafter(lo, np.float32(0))
+        hi = np.nextafter(hi, np.float32(2))
+        cands += [lo, hi]
+    return min(cands, key=lambda c: abs(np.sqrt(np.float64(c) + BN_EPS) - 1.0))
+
+
+def unfold_to_variables(folded: Dict[str, Dict[str, np.ndarray]]) -> Dict[str, Any]:
+    """Inverse bridge of :func:`fold_batchnorm`: a folded ``{layer: {kernel,
+    bias}}`` dict -> the full ``{'params', 'batch_stats'}`` tree with identity
+    batch norms (scale 1, mean 0, bias = the folded bias, the variance of
+    :func:`_identity_bn_var`), so that every consumer of a variables tree
+    takes it unchanged.  Re-folding gives the input back to within one
+    float32 ulp.  The statistics are synthetic: fine-tuning from such a tree
+    re-estimates them from data."""
+    var = _identity_bn_var()
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+
+    def lift(layer):
+        c = folded[layer]
+        bias = np.asarray(c["bias"], np.float32)
+        nout = bias.shape[0]
+        kernel = np.asarray(c["kernel"], np.float32)
+        # deconv modules hold their kernel directly; convs nest it under a
+        # "conv" submodule (the zoo layout)
+        p = ({"kernel": kernel} if layer.startswith("deconv")
+             else {"conv": {"kernel": kernel}})
+        p["bn"] = {"scale": np.ones(nout, np.float32), "bias": bias}
+        s = {"bn": {"mean": np.zeros(nout, np.float32),
+                    "var": np.full(nout, var, np.float32)}}
+        return p, s
+
+    for name in folded:
+        if name.startswith("head"):
+            params[name] = {"kernel": np.asarray(folded[name]["kernel"], np.float32),
+                            "bias": np.asarray(folded[name]["bias"], np.float32)}
+        elif name.startswith("res"):
+            block, sub = name.split("/")
+            params.setdefault(block, {})
+            stats.setdefault(block, {})
+            params[block][sub], stats[block][sub] = lift(name)
+        else:
+            params[name], stats[name] = lift(name)
+    return {"params": params, "batch_stats": stats}
 
 
 # ---------------------------------------------------------------------- executor
@@ -154,6 +211,43 @@ def walk_topology(x, ex: Executor) -> Tuple[Any, Any]:
     return head_large, head_small
 
 
+def walk_topology_lite(x, ex: Executor):
+    """The single-head YOLO-Fastest-lite layer graph, with the res blocks
+    grouped into the same :data:`RES_CHAINS` (the lite backbone is the full
+    one's, up to ``conv5_6``).  Returns head_small only."""
+    x = ex.conv(x, "conv0", 3, 2)
+    x = ex.conv(x, "conv1_2", 1)
+    x = ex.conv(x, "conv1_3", 3, depthwise=True)
+    x = ex.conv(x, "conv1_4", 1, act=False)
+    x = ex.res_chain(x, RES_CHAINS[0])
+    x = ex.conv(x, "conv1_8", 1)
+    x = ex.conv(x, "conv1_9", 3, 2)
+    x = ex.conv(x, "conv2_1", 1, act=False)
+    x = ex.res_chain(x, RES_CHAINS[1])
+    x = ex.conv(x, "conv2_2", 1)
+    x = ex.conv(x, "conv2_3", 3, 2, depthwise=True)
+    x = ex.conv(x, "conv3_1", 1, act=False)
+    x = ex.res_chain(x, RES_CHAINS[2])
+    x = ex.conv(x, "conv3_2", 1)
+    x = ex.conv(x, "conv3_3", 3, depthwise=True)
+    x = ex.conv(x, "conv3_4", 1, act=False)
+    x = ex.res_chain(x, RES_CHAINS[3])
+    x = ex.conv(x, "conv3_5", 1)
+    x = ex.conv(x, "conv3_6", 3, 2, depthwise=True)
+    x = ex.conv(x, "conv4_1", 1, act=False)
+    x = ex.res_chain(x, RES_CHAINS[4])
+    x = ex.conv(x, "conv4_2", 1)
+    x = ex.conv(x, "conv4_3", 3, 2, depthwise=True)
+    x = ex.conv(x, "conv5_1", 1)
+    x = ex.res_chain(x, RES_CHAINS[5])
+    x = ex.conv(x, "conv5_2", 1)
+    x = ex.conv(x, "conv5_3", 5, depthwise=True)
+    x = ex.conv(x, "conv5_4", 1, act=False)
+    x = ex.conv(x, "conv5_5", 5, depthwise=True)
+    x = ex.conv(x, "conv5_6", 1, act=False)
+    return ex.head(x, "head_5")
+
+
 # ----------------------------------------------------------------- fp executor
 def _nchw(x):
     return x.permute(0, 3, 1, 2)
@@ -205,3 +299,9 @@ def folded_apply(params: Dict[str, Any], x, compute_dtype=torch.float32):
     both NHWC.  fp32 convolutions run with TF32 off."""
     with exact_fp32():
         return walk_topology(x, FoldedExecutor(params, compute_dtype))
+
+
+def folded_apply_lite(params: Dict[str, Any], x, compute_dtype=torch.float32):
+    """Run the folded lite graph: (B,H,W,1) -> head_small, NHWC."""
+    with exact_fp32():
+        return walk_topology_lite(x, FoldedExecutor(params, compute_dtype))

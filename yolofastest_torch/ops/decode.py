@@ -16,9 +16,18 @@ order for ties.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _anchor_wh(anchors: Tuple[Tuple[float, float], ...], device: torch.device):
+    """Anchor widths and heights on ``device``, made once: a fresh host ->
+    device copy on every call would wait for the card."""
+    return (torch.tensor([a[0] for a in anchors], dtype=torch.float32, device=device),
+            torch.tensor([a[1] for a in anchors], dtype=torch.float32, device=device))
 
 
 def _decode_one_scale(head, anchors, input_hw):
@@ -41,8 +50,7 @@ def _decode_one_scale(head, anchors, input_hw):
 
     grid_x = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :, None]
     grid_y = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None, None]
-    anchor_w = torch.tensor([a[0] for a in anchors], dtype=torch.float32, device=dev)
-    anchor_h = torch.tensor([a[1] for a in anchors], dtype=torch.float32, device=dev)
+    anchor_w, anchor_h = _anchor_wh(tuple(tuple(map(float, a)) for a in anchors), dev)
 
     cx = (grid_x + torch.sigmoid(tx)) * stride_w
     cy = (grid_y + torch.sigmoid(ty)) * stride_h

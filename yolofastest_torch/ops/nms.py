@@ -2,11 +2,11 @@
 
 The port of ``yolofastest_tpu/ops/nms.py``.  Candidates come in
 conf-descending order; ``iou > iou_thre`` within the same class suppresses
-(strict, ``pixel_offset=0`` for the detect path).  The greedy chain ("a box
-suppresses only if it survived itself") is a plain loop over rows, batched
-over images.  Rows after the last valid candidate of every image can suppress
-nothing, so the loop stops there: one host read of that row count, instead of
-the JAX package's fixed K steps, with the same result.
+(strict, ``pixel_offset=0`` for the detect path).  The greedy keep mask is
+:func:`yolofastest_torch.kernels.nms.nms_keep`: a CUDA kernel on the
+card, with no host read, and its plain loop on the CPU.  The compaction that
+follows (a stable argsort and a gather) is plain torch and reads nothing back
+either, so a detect call returns before the card is done.
 """
 
 from __future__ import annotations
@@ -16,30 +16,16 @@ from typing import Dict
 import numpy as np
 import torch
 
-from yolofastest_torch.ops.boxes import box_iou_matrix
-
-
-def _keep_mask(boxes, cls_idx, valid, iou_thre: float, pixel_offset: float):
-    """Greedy keep mask for a batch: (B, K, 4), (B, K), (B, K) -> (B, K)."""
-    k = boxes.shape[1]
-    iou = box_iou_matrix(boxes, boxes, pixel_offset=pixel_offset)  # (B, K, K)
-    same_class = cls_idx[:, :, None] == cls_idx[:, None, :]
-    upper = torch.triu(torch.ones((k, k), dtype=torch.bool, device=boxes.device), 1)
-    suppress = (iou > iou_thre) & same_class & upper & valid[:, :, None]
-    keep = valid.clone()
-    rows = torch.nonzero(valid.any(dim=0)).flatten()
-    n = int(rows[-1]) + 1 if rows.numel() else 0
-    for i in range(n):
-        # candidate i removes later ones only if it itself survived
-        keep &= ~(suppress[:, i] & keep[:, i:i + 1])
-    return keep
+# the module, not its function: kernels.nms imports ops.boxes, so either
+# package may be imported first
+from yolofastest_torch.kernels import nms as nms_kernel
 
 
 def nms_keep_mask(boxes, conf, cls_idx, valid, iou_thre: float,
                   pixel_offset: float = 0.0):
     """Greedy class-aware keep mask for one image (K candidates)."""
-    return _keep_mask(boxes[None], cls_idx[None], valid[None], iou_thre,
-                      pixel_offset)[0]
+    return nms_kernel.nms_keep(boxes[None], cls_idx[None], valid[None], iou_thre,
+                              pixel_offset)[0]
 
 
 def batched_nms(boxes, conf, cls_score, cls_idx, valid, iou_thre: float,
@@ -63,7 +49,7 @@ def batched_nms(boxes, conf, cls_score, cls_idx, valid, iou_thre: float,
       ``valid`` (B,max_det) and ``count`` (B,), conf-descending, kept rows
       first; or the packed tensor when ``packed=True``.
     """
-    keep = _keep_mask(boxes, cls_idx, valid, iou_thre, pixel_offset)
+    keep = nms_kernel.nms_keep(boxes, cls_idx, valid, iou_thre, pixel_offset)
 
     # Compact kept-first; the stable sort keeps the conf-descending order.
     order = torch.argsort((~keep).to(torch.uint8), dim=1, stable=True)[:, :max_det]

@@ -15,6 +15,7 @@ JAX functions do, so both give the same bits.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -67,6 +68,14 @@ def _cv2_linear_taps(src: int, dst: int):
     return s0.astype(np.int32), a0, a1
 
 
+@functools.lru_cache(maxsize=None)
+def _device_taps(src: int, dst: int, device: torch.device):
+    """:func:`_cv2_linear_taps` on ``device``, made once per size: a fresh
+    host -> device copy on every call would wait for the card."""
+    s0, a0, a1 = (torch.from_numpy(a).to(device) for a in _cv2_linear_taps(src, dst))
+    return s0.long(), a0, a1
+
+
 def resize_bilinear(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """General bilinear resize (half-pixel centres) of (..., H, W).
 
@@ -85,10 +94,8 @@ def resize_bilinear(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
                           antialias=True)
         return y.reshape(*lead, oh, ow)
 
-    dev = img.device
-    sx, ax0, ax1 = (torch.from_numpy(a).to(dev) for a in _cv2_linear_taps(w, ow))
-    sy, ay0, ay1 = (torch.from_numpy(a).to(dev) for a in _cv2_linear_taps(h, oh))
-    sx, sy = sx.long(), sy.long()
+    sx, ax0, ax1 = _device_taps(w, ow, img.device)
+    sy, ay0, ay1 = _device_taps(h, oh, img.device)
     x = img.to(torch.int32)
     # horizontal pass: int32 rows at coefficient scale 2048
     t = (x.index_select(-1, sx) * ax0
