@@ -1,10 +1,12 @@
 """The port's kernels: the res chains (``yolofastest_torch.kernels.res_block``)
-and the NMS keep mask (``yolofastest_torch.kernels.nms``).
+and the NMS with its compaction (``yolofastest_torch.kernels.nms``).
 
 On the CPU the wrappers run their plain PyTorch version; it is held against
 the JAX package's Pallas kernels in interpret mode, at the shapes of
-``tests/test_kernels.py`` plus a pruned width and a ragged plane (the NMS
-plain version is held against the JAX package in tests/test_torch_ops.py).
+``tests/test_kernels.py`` plus a pruned width and a ragged plane.  The NMS
+plain version in the kernel's formulation is held here against the greedy
+loop and the argsort compaction over edge cases, and against the JAX
+package in tests/test_torch_ops.py.
 The tests marked ``cuda`` hold each CUDA kernel against its plain version on
 the card and skip without one.  JAX is imported inside the fixture that needs it, so
 the ``cuda`` tests also run where JAX is not installed:
@@ -17,6 +19,7 @@ import torch
 
 from yolofastest_torch.kernels import nms as tnms_kernel
 from yolofastest_torch.kernels import res_block as rb
+from yolofastest_torch.ops import nms as tnms
 
 # (B, K, H, W, C, I): tests/test_kernels.py's shapes, a pruned040 width
 # (I=20) and a ragged plane (H=13, W=17).
@@ -267,6 +270,153 @@ def _nms_case(seed, b, k, n_cls=2):
     return boxes, cls, valid
 
 
+def _nms_inputs(seed, b, k, n_cls=2, device="cpu", strided=True):
+    """(boxes, conf, cls_score, cls_idx, valid) of :func:`_nms_case`, with
+    boxes, conf and cls_score as views of one (B, K, 7) tensor, as decode
+    gives them (row stride 7), unless ``strided`` is False."""
+    boxes, cls, valid = _nms_case(seed, b, k, n_cls)
+    rng = np.random.default_rng(seed + 1000)
+    conf = -np.sort(-rng.random((b, k)).astype(np.float32), axis=1)
+    score = rng.random((b, k)).astype(np.float32)
+    rows = torch.from_numpy(np.concatenate(
+        [boxes, conf[..., None], score[..., None], cls[..., None].astype(np.float32)], -1)).to(device)
+    if not strided:
+        rows = rows.contiguous()
+        return (rows[..., 0:4].contiguous(), rows[..., 4].contiguous(), rows[..., 5].contiguous(),
+                torch.from_numpy(cls).to(device), torch.from_numpy(valid).to(device))
+    return (rows[..., 0:4], rows[..., 4], rows[..., 5], torch.from_numpy(cls).to(device),
+            torch.from_numpy(valid).to(device))
+
+
+def _nms_edge(name, device="cpu"):
+    """One edge case, B=3, K=37: its inputs and threshold."""
+    boxes, conf, score, cls, valid = _nms_inputs(11, 3, 37, device=device, strided=False)
+    thr = 0.45
+    if name == "thr0":  # any overlap suppresses; disjoint boxes (iou 0) do not
+        thr = 0.0
+    elif name == "thr1":  # iou > 1 never holds: nothing is suppressed
+        thr = 1.0
+    elif name == "all_invalid":
+        valid[:] = False
+    elif name == "one_class":
+        cls[:] = 0
+    elif name == "identical":  # iou 1: the first valid row of each class stays
+        boxes[:] = torch.tensor([3.0, 4.0, 20.0, 17.0], device=device)
+    elif name == "nan_corners":
+        boxes[:, ::4, 1] = float("nan")
+        boxes[1, 2::5, 2] = float("nan")
+    elif name == "zero_area":  # 0 / 0 with pixel_offset 0: a NaN iou
+        boxes[:, ::3, 2] = boxes[:, ::3, 0]
+    return (boxes, conf, score, cls, valid), thr
+
+
+NMS_EDGES = ["thr0", "thr1", "all_invalid", "one_class", "identical", "nan_corners", "zero_area"]
+# (B, K) on the CPU: every B in {1, 3, 64} with every K in {1, 37, 128, 1024},
+# but B=64 at K=1024, whose (B, K, K) IOU temporaries take GBs on the CPU
+# (the card takes it: NMS_CUDA_BK).
+NMS_CPU_BK = [(b, k) for b in (1, 3, 64) for k in (1, 37, 128, 1024) if (b, k) != (64, 1024)]
+NMS_CUDA_BK = NMS_CPU_BK + [(64, 1024)]
+
+
+def _max_dets(k):
+    """max_det 1, 64, K and above K (K=1024: 64 and above K)."""
+    return sorted({64, k + 7} if k > 128 else {1, 64, k, k + 7})
+
+
+def _compaction(boxes, conf, cls_score, cls_idx, keep, max_det):
+    """The stable argsort of ~keep and the gather of the packed rows, as
+    ``batched_nms`` compacted before the kernel did."""
+    order = torch.argsort((~keep).to(torch.uint8), dim=1, stable=True)[:, :max_det]
+    stacked = torch.cat([boxes, conf[..., None], cls_score[..., None],
+                         cls_idx.to(torch.float32)[..., None],
+                         keep.to(torch.float32)[..., None]], dim=-1)
+    return torch.gather(stacked, 1, order[..., None].expand(-1, -1, 8))
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def _check_packed_plain(args, thr, offsets=(0.0, 1.0)):
+    """nms_packed_plain against the greedy loop and the argsort compaction,
+    every pixel offset and max_det."""
+    boxes, conf, score, cls, valid = args
+    for off in offsets:
+        want_keep = tnms_kernel.nms_keep_plain(boxes, cls, valid, thr, off)
+        for max_det in _max_dets(valid.shape[1]):
+            packed, keep = tnms_kernel.nms_packed_plain(*args, thr, max_det, off)
+            assert torch.equal(keep, want_keep), (off, max_det)
+            assert _same_bits(packed, _compaction(boxes, conf, score, cls, want_keep, max_det)), \
+                (off, max_det)
+
+
+@pytest.mark.parametrize("b,k", NMS_CPU_BK)
+def test_nms_packed_plain_matches_loop(b, k):
+    """Word layout, scan, ranks and places of the kernel's formulation give
+    the greedy loop's mask and the argsort compaction's rows, bit for bit."""
+    _check_packed_plain(_nms_inputs(b * 7 + k, b, k), 0.45)
+
+
+@pytest.mark.parametrize("name", NMS_EDGES)
+def test_nms_packed_plain_edge_cases(name):
+    args, thr = _nms_edge(name)
+    _check_packed_plain(args, thr)
+    if name == "all_invalid":
+        packed, keep = tnms_kernel.nms_packed_plain(*args, thr, 64)
+        assert not keep.any() and not packed[..., 7].any()
+    if name == "identical":
+        keep = tnms_kernel.nms_packed_plain(*args, thr, 64)[1]
+        assert (keep.sum(1) <= 2).all()
+
+
+@pytest.mark.parametrize("what", ["corners", "cls_shape", "valid_1d", "k_over_max", "k_zero",
+                                  "max_det_0", "cls_int64", "meta"])
+def test_nms_wrappers_raise(what):
+    """The checks that run before the kernel or its plain version, on the CPU."""
+    boxes, conf, score, cls, valid = _nms_inputs(5, 2, 40, strided=False)
+    max_det, error, match = 64, ValueError, "want boxes"
+    if what == "corners":
+        boxes = boxes[..., :3]
+    elif what == "cls_shape":
+        cls = cls[:, :39]
+    elif what == "valid_1d":
+        valid = valid[0]
+    elif what in ("k_over_max", "k_zero"):
+        k = tnms_kernel.MAX_ROWS + 1 if what == "k_over_max" else 0
+        boxes, conf, score, cls, valid = _nms_inputs(5, 2, k, strided=False)
+        match = "at most 1024"
+    elif what == "max_det_0":
+        max_det, match = 0, "max_det"
+    elif what == "cls_int64":
+        cls, error, match = cls.long(), TypeError, "cls_idx must be torch.int32"
+    elif what == "meta":
+        boxes, conf, score, cls, valid = (t.to("meta") for t in (boxes, conf, score, cls, valid))
+        error, match = RuntimeError, "cuda"
+    before = dict(rb.LAUNCHES)
+    with pytest.raises(error, match=match):
+        tnms_kernel.nms_packed(boxes, conf, score, cls, valid, 0.45, max_det)
+    if what != "max_det_0":
+        with pytest.raises(error, match=match):
+            tnms_kernel.nms_keep(boxes, cls, valid, 0.45)
+    assert rb.LAUNCHES == before
+
+
+def test_nms_packed_on_cpu_is_the_plain_version():
+    args = _nms_inputs(6, 3, 50)
+    before = dict(rb.LAUNCHES)
+    packed, keep = tnms_kernel.nms_packed(*args, 0.45, 20)
+    want_packed, want_keep = tnms_kernel.nms_packed_plain(*args, 0.45, 20)
+    assert _same_bits(packed, want_packed) and torch.equal(keep, want_keep)
+    assert packed.shape == (3, 20, 8) and packed.is_contiguous()
+    # batched_nms: the packed rows, and the dict built from them and keep
+    assert _same_bits(tnms.batched_nms(*args, iou_thre=0.45, max_det=20, packed=True), packed)
+    d = tnms.batched_nms(*args, iou_thre=0.45, max_det=20)
+    assert torch.equal(d["count"], keep.sum(1).clamp(0, 20).to(torch.int32))
+    assert torch.equal(d["valid"], packed[..., 7] > 0.5)
+    assert rb.LAUNCHES == before  # no kernel on the CPU
+
+
 def test_nms_keep_on_cpu_is_the_plain_version():
     boxes, cls, valid = (torch.from_numpy(a) for a in _nms_case(0, 3, 40))
     before = dict(rb.LAUNCHES)
@@ -285,9 +435,9 @@ def test_nms_kernel_matches_plain(cuda_device, b, k, pixel_offset):
     """Bit for bit: the kernel's keep mask equals the plain loop's on the card."""
     for seed in range(4):
         boxes, cls, valid = (torch.from_numpy(a).to(cuda_device) for a in _nms_case(seed, b, k))
-        before = rb.LAUNCHES["nms_keep"]
+        before = rb.LAUNCHES["nms"]
         got = tnms_kernel.nms_keep(boxes, cls, valid, 0.45, pixel_offset)
-        assert rb.LAUNCHES["nms_keep"] == before + 1
+        assert rb.LAUNCHES["nms"] == before + 1
         want = tnms_kernel.nms_keep_plain(boxes, cls, valid, 0.45, pixel_offset)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
@@ -303,3 +453,77 @@ def test_nms_kernel_empty_and_all_invalid(cuda_device):
     with pytest.raises(ValueError, match="at most"):
         tnms_kernel.nms_keep(*(t.repeat(1, 9, *([1] * (t.ndim - 2))) for t in (boxes, cls, valid)),
                              0.45)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k", NMS_CUDA_BK)
+@pytest.mark.parametrize("strided", [True, False])
+def test_nms_packed_kernel_matches_plain(cuda_device, b, k, strided):
+    """Bit for bit on the card: packed rows and keep against nms_packed_plain
+    (and keep against the greedy loop), from decode's strided views and from
+    contiguous tensors, every pixel offset and max_det."""
+    args = _nms_inputs(b * 7 + k, b, k, device=cuda_device, strided=strided)
+    boxes, conf, score, cls, valid = args
+    for off in (0.0, 1.0):
+        loop = tnms_kernel.nms_keep_plain(boxes, cls, valid, 0.45, off)
+        for max_det in _max_dets(k):
+            before = rb.LAUNCHES["nms"]
+            packed, keep = tnms_kernel.nms_packed(*args, 0.45, max_det, off)
+            assert rb.LAUNCHES["nms"] == before + 1
+            want_packed, want_keep = tnms_kernel.nms_packed_plain(*args, 0.45, max_det, off)
+            torch.cuda.synchronize()
+            assert torch.equal(keep, want_keep) and torch.equal(keep, loop), (off, max_det)
+            assert _same_bits(packed, want_packed), (off, max_det)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NMS_EDGES)
+def test_nms_packed_kernel_edge_cases(cuda_device, name):
+    args, thr = _nms_edge(name, cuda_device)
+    for off in (0.0, 1.0):
+        for max_det in _max_dets(37):
+            packed, keep = tnms_kernel.nms_packed(*args, thr, max_det, off)
+            want_packed, want_keep = tnms_kernel.nms_packed_plain(*args, thr, max_det, off)
+            torch.cuda.synchronize()
+            assert torch.equal(keep, want_keep) and _same_bits(packed, want_packed), (off, max_det)
+
+
+@pytest.mark.cuda
+def test_batched_nms_is_one_launch(cuda_device):
+    """One batched_nms call on the card is one kernel launch: the launch
+    count, and the profiler's device events between two marker kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_kernels(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    args = _nms_inputs(3, 64, 128, device=cuda_device)
+    tnms.batched_nms(*args, iou_thre=0.45, packed=True)  # built and warm
+    markers = set(device_kernels(lambda: torch.cuda._sleep(1000)))
+    before = rb.LAUNCHES["nms"]
+
+    def marked():
+        torch.cuda._sleep(1000)
+        tnms.batched_nms(*args, iou_thre=0.45, packed=True)
+        torch.cuda._sleep(1000)
+
+    between = [name for name in device_kernels(marked) if name not in markers]
+    assert rb.LAUNCHES["nms"] == before + 1
+    assert len(between) == 1 and "nms_packed" in between[0], between
+
+
+@pytest.mark.cuda
+def test_nms_kernel_rejects_what_it_does_not_take(cuda_device):
+    boxes, conf, score, cls, valid = _nms_inputs(4, 2, 40, device=cuda_device)
+    with pytest.raises(ValueError, match="last stride"):
+        tnms_kernel.nms_packed(boxes.transpose(1, 2).contiguous().transpose(1, 2), conf, score,
+                               cls, valid, 0.45, 64)
+    with pytest.raises(TypeError, match="valid"):
+        tnms_kernel.nms_packed(boxes, conf, score, cls, valid.to(torch.uint8), 0.45, 64)
+    with pytest.raises(ValueError, match="cpu"):
+        tnms_kernel.nms_packed(boxes, conf.cpu(), score, cls, valid, 0.45, 64)

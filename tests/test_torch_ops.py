@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from yolofastest_torch.configs import get_config
+from yolofastest_torch.inference.detector import _merge_tta
+from yolofastest_torch.kernels import nms as tnms_kernel
 from yolofastest_torch.ops import boxes as tboxes
 from yolofastest_torch.ops import decode as tdecode
 from yolofastest_torch.ops import nms as tnms
@@ -173,22 +175,38 @@ def test_round_half_to_even():
                                   [-8.0, -8.0, -0.0, 0.0, 2.0, 2.0, 4.0, 100.0])
 
 
-@pytest.mark.parametrize("case", ["256x320", "512x640", "ties"])
+def _nms_candidates(case):
+    """The JAX decode's candidates of one case, and its preset; ``tta``: the
+    256x320 fixture's four images merged in pairs as the TTA merge merges an
+    image and its mirror (K=256)."""
+    res, _, cand = _decode_both("256x320" if case == "tta" else case)
+    cand = [torch.from_numpy(np.array(c)) for c in cand]
+    if case == "tta":
+        cand = list(_merge_tta(*cand, float(get_config(res).io.input_hw[1])))
+    return get_config(res).io, cand
+
+
+@pytest.mark.parametrize("case", ["256x320", "512x640", "tta", "ties"])
 def test_batched_nms_packed_matches(case):
     """The same candidates (the JAX decode's) through both NMS: equal packed
-    output, kept rows first, and the dict form agrees with it."""
-    res, _, cand = _decode_both(case)
-    io = get_config(res).io
-    ours = tnms.batched_nms(*(torch.from_numpy(np.array(c)) for c in cand),
-                            iou_thre=io.nms_thre, max_det=io.max_det, packed=True)
-    theirs = _jbatched_nms(*(jnp.asarray(c) for c in cand),
-                           iou_thre=io.nms_thre, max_det=io.max_det, packed=True)
-    np.testing.assert_array_equal(_np(ours), np.asarray(theirs))
-    d = tnms.batched_nms(*(torch.from_numpy(np.array(c)) for c in cand),
-                         iou_thre=io.nms_thre, max_det=io.max_det)
-    u = tnms.unpack_detections(ours)
-    np.testing.assert_array_equal(_np(d["count"]), u["count"])
-    np.testing.assert_array_equal(_np(d["boxes"]), u["boxes"])
+    output bit for bit, kept rows first; the keep mask equal to the greedy
+    loop's; and the dict form (built from the packed rows and keep) equal to
+    the unpacked rows."""
+    io, cand = _nms_candidates(case)
+    ours = tnms.batched_nms(*cand, iou_thre=io.nms_thre, max_det=io.max_det, packed=True)
+    theirs = np.asarray(_jbatched_nms(*(jnp.asarray(c.numpy()) for c in cand),
+                                      iou_thre=io.nms_thre, max_det=io.max_det, packed=True))
+    assert ours.shape == theirs.shape
+    np.testing.assert_array_equal(_np(ours).view(np.int32), theirs.view(np.int32))
+    _, keep = tnms_kernel.nms_packed_plain(*cand, io.nms_thre, io.max_det)
+    np.testing.assert_array_equal(
+        _np(keep), _np(tnms_kernel.nms_keep_plain(cand[0], cand[3], cand[4], io.nms_thre)))
+    d = tnms.batched_nms(*cand, iou_thre=io.nms_thre, max_det=io.max_det)
+    u = tnms.unpack_detections(theirs)
+    for key in ("boxes", "conf", "cls_score", "cls_idx", "valid", "count"):
+        np.testing.assert_array_equal(_np(d[key]), u[key])
+    if case == "tta":
+        assert keep.shape == (2, 256)
 
 
 def test_nms_keep_mask_pixel_offset():

@@ -39,31 +39,9 @@ import subprocess
 import sys
 import time
 
+from torch_timing import device_busy
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def device_busy(fn, reps: int):
-    """Busy ms per call and busy share of the traced span, from the card's
-    intervals in a torch.profiler trace of ``reps`` calls."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
-    if not spans:
-        return None, None
-    busy, end = 0.0, spans[0][0]
-    for s, e in spans:
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    return busy / 1e3 / reps, busy / (end - spans[0][0])
 
 
 def end_to_end(det, frames, reps: int):

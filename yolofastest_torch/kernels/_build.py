@@ -32,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Kernel launches by wrapper, so that a run can show that it went through the
 # kernels.  Process-wide; each wrapper adds one where it launches, and
 # nowhere else.
-LAUNCHES: Dict[str, int] = {"res_chain_cf": 0, "res_chain_rows": 0, "nms_keep": 0}
+LAUNCHES: Dict[str, int] = {"res_chain_cf": 0, "res_chain_rows": 0, "nms": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # ptxas' report (registers, shared memory, spills) of each library built by

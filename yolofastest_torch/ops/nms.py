@@ -2,11 +2,11 @@
 
 The port of ``yolofastest_tpu/ops/nms.py``.  Candidates come in
 conf-descending order; ``iou > iou_thre`` within the same class suppresses
-(strict, ``pixel_offset=0`` for the detect path).  The greedy keep mask is
-:func:`yolofastest_torch.kernels.nms.nms_keep`: a CUDA kernel on the
-card, with no host read, and its plain loop on the CPU.  The compaction that
-follows (a stable argsort and a gather) is plain torch and reads nothing back
-either, so a detect call returns before the card is done.
+(strict, ``pixel_offset=0`` for the detect path).  The keep mask and the
+kept-first compaction are one call,
+:func:`yolofastest_torch.kernels.nms.nms_packed`: one CUDA kernel launch on
+the card, with no host read, so a detect call returns before the card is
+done; its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -49,29 +49,16 @@ def batched_nms(boxes, conf, cls_score, cls_idx, valid, iou_thre: float,
       ``valid`` (B,max_det) and ``count`` (B,), conf-descending, kept rows
       first; or the packed tensor when ``packed=True``.
     """
-    keep = nms_kernel.nms_keep(boxes, cls_idx, valid, iou_thre, pixel_offset)
-
-    # Compact kept-first; the stable sort keeps the conf-descending order.
-    order = torch.argsort((~keep).to(torch.uint8), dim=1, stable=True)[:, :max_det]
-    stacked = torch.cat(
-        [
-            boxes,
-            conf[..., None],
-            cls_score[..., None],
-            cls_idx.to(torch.float32)[..., None],
-            keep.to(torch.float32)[..., None],
-        ],
-        dim=-1,
-    )  # (B, K, 8)
-    picked = torch.gather(stacked, 1, order[..., None].expand(-1, -1, 8))
+    rows, keep = nms_kernel.nms_packed(boxes, conf, cls_score, cls_idx, valid, iou_thre,
+                                       max_det, pixel_offset)
     if packed:
-        return picked  # (B, max_det, 8)
+        return rows  # (B, min(K, max_det), 8)
     return {
-        "boxes": picked[..., 0:4],
-        "conf": picked[..., 4],
-        "cls_score": picked[..., 5],
-        "cls_idx": picked[..., 6].to(torch.int32),
-        "valid": picked[..., 7] > 0.5,
+        "boxes": rows[..., 0:4],
+        "conf": rows[..., 4],
+        "cls_score": rows[..., 5],
+        "cls_idx": rows[..., 6].to(torch.int32),
+        "valid": rows[..., 7] > 0.5,
         "count": keep.to(torch.int32).sum(dim=1).clamp(0, max_det),
     }
 
