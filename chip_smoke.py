@@ -11,24 +11,30 @@ PyTorch version, runs the deployed detector (``Detector.run_raw``: uint8
 frames in, detections out) on the golden fixtures at both resolutions and
 checks the golden boxes, drives every other entry point of the port (lite,
 TTA, sliced detection, streaming, the batcher and HTTP server, video with
-tracking) at full width, then times the main path and the kernels.  Phases
-print one JSON line each, in order: device (after the raw ``nvidia-smi``
-line), build, kernels, nms_kernel (the NMS kernel's packed rows and keep
-mask bit for bit against its plain version), golden (the main path, whose kernel
-launches are counted), k1_path (the folded forward with its chains through
-the channels-first kernel), bf16, pruned, lite, tta, sliced, timing (with
-the host return of a B=64 ``run_packed``), streaming, serve, video,
-kernel_timing (the chains; the NMS kernel's device time from the profiler
-beside its back-to-back events time, which is the host's pace, and the NMS
-stage's kernels, device and host time per call); then the
-``{"kernels": [...]}`` summary, and last
-``{"ok": true, "device": {...}}``.  Every path resets the kernel launch
-counts before it runs and checks them after.
+tracking) at full width, then times the main path and the kernels, and
+drives the training path (the Trainer's fit with validation and
+checkpoints, the mAP evaluator through both backends, distillation, a
+trained checkpoint deployed).  Phases print one JSON line each, in order:
+device (after the raw ``nvidia-smi`` line), build, kernels, nms_kernel (the
+NMS kernel's packed rows and keep mask bit for bit against its plain
+version), golden (the main path, whose kernel launches are counted), k1_path
+(the folded forward with its chains through the channels-first kernel),
+bf16, pruned, lite, tta, sliced, timing (with the host return of a B=64
+``run_packed``), streaming, serve, video, kernel_timing (the chains; the NMS
+kernel's device time from the profiler beside its back-to-back events time,
+which is the host's pace, and the NMS stage's kernels, device and host time
+per call), train (fit, overfit, card against CPU in float64 and fp32,
+restore, and the step's timing at B=16 and B=64, fp32 and bf16, split by
+its profiler spans), eval, distill, deploy_trained; then
+the ``{"kernels": [...]}`` summary, and last ``{"ok": true, "device":
+{...}}``.  Every path resets the kernel launch counts before it runs and
+checks them after.
 
 Any failed check raises, so the script exits non-zero and prints no ok line;
 without a CUDA card it exits 2 at once.  It imports nothing of JAX.  The
 frames are built with numpy from ``tests/fixtures``; cv2 encodes the HTTP
-request's image and writes the synthetic video.
+request's image, writes the synthetic video and the synthetic VOC set the
+training path reads (in a temporary directory).
 """
 
 from __future__ import annotations
@@ -203,9 +209,315 @@ def chain_bound(b, h, w, c, i, k, dtype_name):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
 def fp32_ratio(got, ref) -> float:
     """Worst ratio of |got - ref| to the fp32 tolerance: above 1 fails it."""
     return float(((got - ref).abs() / (FP32_TOL + FP32_TOL * ref.abs())).max())
+
+
+def train_path(card, counted) -> dict:
+    """The training path on the card: train, eval, distill and
+    deploy_trained, one JSON line each; returns the launch counts of each."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from torch_timing import device_busy, span_ms
+    from yolofastest_torch.configs import get_config
+    from yolofastest_torch.data import DetectionLoader, ListLoader, VOCIndex, write_synthetic_voc
+    from yolofastest_torch.eval import MAPEvaluator, make_backend_eval_fn
+    from yolofastest_torch.inference import Detector
+    from yolofastest_torch.models import load_variables
+    from yolofastest_torch.train import Trainer, checkpoint_variables, make_teacher_fn
+    from yolofastest_torch.utils.logging import LineLog
+
+    zoo = load_variables(os.path.join(WEIGHTS, "yolofastest_256x320.npz"))
+    preset = get_config("256x320")
+    tr = dataclasses.replace(preset.train, batch_size=16, total_epochs=2, val_after_epoch=-1,
+                             ema_decay=0.999, ema_ramp=20, warmup_min_iters=2, log_every=2,
+                             max_to_keep=2)
+    cfg = dataclasses.replace(preset, train=tr)
+    fx = np.load(os.path.join(FIXTURES, "golden_256x320.npz"))
+    gmap = np.load(os.path.join(FIXTURES, "golden_map.npz"))
+    golden_x = (fx["pre_imgs"].astype(np.float32)[..., None] - 128.0) / 255.0
+    counts = {}
+
+    def cycle(loader):
+        while True:
+            yield from loader
+
+    with tempfile.TemporaryDirectory(prefix="yf_train_") as td:
+        # ---------------------------------------------------------- train
+        # fit: 64 synthetic images at the preset's 512x640, B=16, 2 epochs
+        # from the zoo weights, EMA, validation every epoch, checkpoints
+        voc = os.path.join(td, "voc")
+        write_synthetic_voc(voc, 64, cfg.io.origin_img_shape[:2], cfg.io.class_names, seed=0)
+        index = VOCIndex(voc, cfg.io.class_names)
+        loader = DetectionLoader(index, cfg, seed=0, cache=True)
+        log = LineLog()
+        trainer = Trainer(cfg, batch_per_epoch=len(loader), variables=zoo, logger=log,
+                          device="cuda")
+        validator = MAPEvaluator(cfg, DetectionLoader(index, cfg, augment=False, shuffle=False,
+                                                      drop_last=False), logger=log, device="cuda")
+        ckdir = os.path.join(td, "ckpt")
+        t0 = time.perf_counter()
+        history, counts["train"] = counted(lambda: trainer.fit(loader, validator=validator,
+                                                               checkpoint_dir=ckdir))
+        fit_s = time.perf_counter() - t0
+        fit_losses = [float(ln.split("loss = ")[1].split(",")[0]) for ln in log.lines
+                      if "loss = " in ln]
+        check(len(fit_losses) == 4 and all(np.isfinite(fit_losses)), f"fit losses {fit_losses}")
+        check(sorted(os.listdir(ckdir)) == ["epoch_0", "epoch_1"] and len(history) == 2
+              and all("mAP" in h for h in history), f"fit: {history}, {os.listdir(ckdir)}")
+        # validation is the path's only kernel: one NMS launch a val batch
+        check(counts["train"]["nms"] == 2 * 4 and counts["train"]["res_chain_rows"] == 0,
+              f"fit launches {counts['train']}")
+
+        # a restored step equals the uninterrupted one (cuDNN deterministic)
+        batch = next(iter(loader))
+        fresh = Trainer(cfg, batch_per_epoch=len(loader), seed=1, device="cuda")
+        fresh.restore_checkpoint(os.path.join(ckdir, "epoch_1"))
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=False):
+            for t in (trainer, fresh):
+                t.step(*batch)
+        pairs = [(getattr(trainer.state, f), getattr(fresh.state, f))
+                 for f in ("params", "batch_stats", "mu", "nu")]
+        pairs += list(zip(trainer.state.ema, fresh.state.ema))
+        restore_diff = max(float((a - b).abs().max()) for a, b in pairs)
+
+        # one batch 20 times: the loss drops
+        one = dataclasses.replace(cfg, train=dataclasses.replace(tr, ema_decay=0.0))
+        over = Trainer(one, batch_per_epoch=1, variables=zoo, device="cuda")
+        over_losses = [float(over.step(*batch)["total"]) for _ in range(20)]
+
+        # card against CPU: two steps from the zoo weights on the same two
+        # batches, in fp32 (TF32 off) and in float64 (Trainer.to_float64).
+        # Per leaf, relative L2 of the step (the weights' change from the
+        # zoo: step 0 has lr 0, so this is step 1's Adam update), of Adam's
+        # first moment (the gradients) and of the weights, leaving out the
+        # leaves whose float64 gradient is zero (BatchNorm biases of linear
+        # layers that only feed train-mode BN).  float64: the card equals the
+        # CPU (a wrong, skipped or sign-flipped update is off by 1-2 a leaf).
+        # fp32: the card against the CPU, at 0.5 a leaf for the step and the
+        # moment (fp32 sums over this many pixels put either side ~0.1 a leaf
+        # from float64, the card and the CPU ~0.02 apart), and each side's
+        # distance from float64.
+        two = list(DetectionLoader(index, cfg, seed=3))[:2]
+        runs = {}
+        for name, device in (("card", "cuda"), ("cpu", "cpu"), ("card64", "cuda"),
+                             ("cpu64", "cpu")):
+            t = Trainer(one, batch_per_epoch=1, variables=zoo, device=device)
+            if name.endswith("64"):
+                t.to_float64()
+            start = t.state.params.detach().to("cpu", torch.float64, copy=True)
+            losses = [{k: float(v) for k, v in t.step(*b).items()} for b in two]
+            params = t.state.params.detach().to("cpu", torch.float64, copy=True)
+            vec = {"step": params - start, "mu": t.state.mu.detach().to("cpu", torch.float64),
+                   "params": params}
+            runs[name] = {"losses": losses,
+                          **{k: t.layouts[0].views(v) for k, v in vec.items()}}
+        mu64 = runs["cpu64"]["mu"]
+        total = float(np.sqrt(sum(float(v.norm()) ** 2 for v in mu64.values())))
+        kept = [n for n, v in mu64.items() if float(v.norm()) >= 1e-9 * total]
+
+        def compare(a, b, what):
+            rel = {n: rel_l2(runs[a][what][n], runs[b][what][n]) for n in kept}
+            worst = max(rel, key=rel.get)
+            whole = rel_l2(torch.cat([runs[a][what][n].reshape(-1) for n in kept]),
+                           torch.cat([runs[b][what][n].reshape(-1) for n in kept]))
+            return {"worst_leaf": [worst, rel[worst]],
+                    "median": float(np.median(list(rel.values()))), "whole": whole}
+
+        def loss_rel(a, b):
+            return max(abs(x[k] - y[k]) / abs(y[k])
+                       for x, y in zip(runs[a]["losses"], runs[b]["losses"])
+                       for k in ("total", "x", "y", "w", "h", "conf", "cls"))
+
+        card_vs_cpu = {"steps": 2, "leaves": len(kept),
+                       "zero_gradient_leaves": len(mu64) - len(kept),
+                       "loss_max_rel": {"float64": loss_rel("card64", "cpu64"),
+                                        "fp32": loss_rel("card", "cpu")}}
+        for a, b in (("card64", "cpu64"), ("card", "cpu"), ("card", "card64"), ("cpu", "cpu64")):
+            card_vs_cpu[f"{a}_vs_{b}"] = {w: compare(a, b, w) for w in ("step", "mu", "params")}
+
+        # the step's timing, fed by the loader (cache on) like fit, and on
+        # batches already on the card; the split from the step's profiler
+        # spans (device ms of each span's operations, host ms under the trace)
+        timing = []
+        for dt in (torch.float32, torch.bfloat16):
+            for b in (16, 64):
+                cb = dataclasses.replace(cfg, train=dataclasses.replace(tr, batch_size=b))
+                lb = DetectionLoader(index, cb, seed=0, cache=True)
+                tb = Trainer(cb, batch_per_epoch=len(lb), variables=zoo, compute_dtype=dt,
+                             device="cuda")
+                feed = cycle(lb)
+                host = next(feed)
+                resident = [tuple(tb.upload(a) for a in next(feed)) for _ in range(2)]
+                for i in range(3):
+                    tb.step(*resident[i % 2])
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                n, wait = 10, 0.0
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    w0 = time.perf_counter()
+                    imgs, tgts = next(feed)
+                    wait += time.perf_counter() - w0
+                    tb.step(tb.upload(imgs), tb.upload(tgts))
+                torch.cuda.synchronize()
+                fed_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                for i in range(n):
+                    tb.step(*resident[i % 2])
+                torch.cuda.synchronize()
+                resident_s = time.perf_counter() - t0
+                peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+                busy_ms, busy_share = device_busy(lambda: tb.step(*resident[0]), 3)
+                spans = span_ms(lambda: tb.step(tb.upload(host[0]), tb.upload(host[1])), 3,
+                                "train_step/")
+                # the backward's kernels run on the autograd engine's thread
+                split = {k: v[0] for k, v in spans.items() if k != "autograd_engine"}
+                split["backward"] += spans["autograd_engine"][0]
+                timing.append({
+                    "dtype": str(dt).split(".")[-1], "batch": b, "steps": n,
+                    "steps_per_s": n / fed_s, "images_per_s": n * b / fed_s,
+                    "loader_wait_ms": wait * 1e3 / n,
+                    "split_device_ms": split,
+                    "split_host_ms_traced": {k: v[1] for k, v in spans.items()
+                                             if k != "autograd_engine"},
+                    "steps_per_s_resident": n / resident_s,
+                    "images_per_s_resident": n * b / resident_s,
+                    "device_busy_ms": busy_ms, "device_busy_share": busy_share,
+                    "peak_memory_mb": peak_mb})
+        emit("train", card=card, res="256x320", images=64, origin=list(cfg.io.origin_img_shape),
+             fit={"epochs": 2, "batch": 16, "steps": 8, "seconds": fit_s, "losses": fit_losses,
+                  "mAP": [h["mAP"] for h in history], "launches": counts["train"]},
+             restored_step_max_abs_diff=restore_diff,
+             overfit={"losses": over_losses[::4] + [over_losses[-1]],
+                      "last3_over_first": float(np.mean(over_losses[-3:]) / over_losses[0])},
+             card_vs_cpu={**card_vs_cpu,
+                          "tolerance": "float64: losses and every leaf (step, mu, params) "
+                                       "1e-9; fp32: losses 1e-4, params 1e-3 a leaf, step "
+                                       "and mu 0.5 a leaf"},
+             timing=timing,
+             timing_note="steps_per_s: loader-fed (cache on) with the upload, like fit; "
+                         "resident: batches already on the card; split: the step's "
+                         "train_step/* profiler spans over 3 steps, ms a step (the "
+                         "backward's device ms from the autograd engine's thread)")
+        check(restore_diff == 0.0, f"restored step differs by {restore_diff}")
+        check(np.mean(over_losses[-3:]) < 0.9 * over_losses[0],
+              f"one batch 20 times: loss {over_losses[0]} -> {over_losses[-3:]}")
+        f64 = card_vs_cpu["card64_vs_cpu64"]
+        check(card_vs_cpu["loss_max_rel"]["float64"] <= 1e-9
+              and all(f64[w]["worst_leaf"][1] <= 1e-9 for w in f64),
+              f"card vs CPU in float64: {card_vs_cpu['loss_max_rel']}, {f64}")
+        check(card_vs_cpu["loss_max_rel"]["fp32"] <= 1e-4,
+              f"card vs CPU losses: {card_vs_cpu['loss_max_rel']}")
+        check(card_vs_cpu["card_vs_cpu"]["params"]["worst_leaf"][1] <= 1e-3,
+              f"card vs CPU weights: {card_vs_cpu['card_vs_cpu']['params']}")
+        for w in ("step", "mu"):
+            check(card_vs_cpu["card_vs_cpu"][w]["worst_leaf"][1] <= 0.5,
+                  f"card vs CPU {w} in fp32: {card_vs_cpu['card_vs_cpu'][w]}")
+        check(set(timing[0]["split_device_ms"]) == {"upload", "forward", "loss", "backward",
+                                                    "optimizer"}
+              and all(t["split_device_ms"]["backward"] > 0 for t in timing),
+              f"step spans {timing[0]['split_device_ms']}")
+
+        # the trained checkpoint (its EMA model) for deploy_trained
+        trained = checkpoint_variables(os.path.join(ckdir, "epoch_1"))
+
+    # ------------------------------------------------------ deploy_trained
+    # through checkpoint_variables into the folded Detector: its heads equal
+    # the trainable model's eval forward
+    folded = Detector(preset, variables=trained, device="cuda")
+    unfolded = Detector(preset, variables=trained, fold_bn=False, device="cuda")
+    heads, counts["deploy_trained"] = counted(lambda: folded.forward_heads(golden_x))
+    ref_heads = unfolded.forward_heads(golden_x)
+    head_err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(heads, ref_heads))
+    emit("deploy_trained", card=card, dtype="float32", frames=int(golden_x.shape[0]),
+         heads_max_abs_err_over_max=head_err, tolerance="1e-3 of the largest logit",
+         launches=counts["deploy_trained"])
+    check(head_err <= 1e-3, f"folded trained heads differ by {head_err}")
+    check(counts["deploy_trained"]["res_chain_rows"] == 6 and counts["deploy_trained"]["nms"] == 0,
+          f"deploy_trained launches {counts['deploy_trained']}")
+
+    # ---------------------------------------------------------------- eval
+    # the zoo 256x320 on the golden frames and golden_map targets (batches
+    # of 8, 8 and a padded 4), through the training model and the deployed
+    # Detector, the CPU port's mAP beside; then images/s on 4 batches of 64
+    golden = ListLoader([(golden_x[i:i + 8], gmap["targets"][i:i + 8]) for i in (0, 8, 16)], 8)
+    tiles = [np.arange(64 * k, 64 * k + 64) % 20 for k in range(4)]
+    tiled = ListLoader([(golden_x[i], gmap["targets"][i]) for i in tiles], 64)
+
+    def evaluator(backend, loader, device):
+        if backend == "train":
+            return MAPEvaluator(preset, loader, logger=LineLog(), device=device), zoo
+        det = Detector(preset, variables=zoo, device=device)
+        return MAPEvaluator(preset, loader, logger=LineLog(),
+                            eval_fn=make_backend_eval_fn(det)), None
+
+    ev = {}
+    for backend in ("train", "fp"):
+        e, v = evaluator(backend, golden, "cuda")
+        m, counts[f"eval_{backend}"] = counted(lambda: e(v, 0))
+        e_cpu, v_cpu = evaluator(backend, golden, "cpu")
+        m_cpu = e_cpu(v_cpu, 0)
+        e_t, v_t = evaluator(backend, tiled, "cuda")
+        e_t(v_t, 0)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e_t(v_t, 0)
+        ips = 4 * 64 / (time.perf_counter() - t0)
+        ev[backend] = {"mAP": m, "cpu_mAP": m_cpu, "target_num": e.last_metrics["target_num"],
+                       "detection_rate": e.last_metrics["detection_rate"],
+                       "images_per_s_4x64": ips, "launches": counts[f"eval_{backend}"]}
+    emit("eval", card=card, res="256x320", weights="yolofastest_256x320.npz",
+         ref_map=float(gmap["ref_map"]), backends=ev,
+         tolerance="mAP within 1e-3 of the CPU port's")
+    for backend, r in ev.items():
+        check(abs(r["mAP"] - r["cpu_mAP"]) <= 1e-3,
+              f"eval {backend}: {r['mAP']} vs CPU {r['cpu_mAP']}")
+    check(counts["eval_train"]["nms"] == 3 and counts["eval_train"]["res_chain_rows"] == 0,
+          f"eval train launches {counts['eval_train']}")
+    check(counts["eval_fp"]["nms"] == 3 and counts["eval_fp"]["res_chain_rows"] == 18,
+          f"eval fp launches {counts['eval_fp']}")
+
+    # ------------------------------------------------------------- distill
+    # a lite student (the lite zoo) against the full teacher (the 256x320
+    # zoo, folded: 6 chain launches a step), 3 steps on the card; the first
+    # step's losses against the CPU's
+    lite = get_config("lite-256x320")
+    lite = dataclasses.replace(lite, train=dataclasses.replace(lite.train, batch_size=16,
+                                                               warmup_min_iters=2))
+    student = load_variables(os.path.join(WEIGHTS, "yolofastest_lite_256x320.npz"))
+    xb = golden_x[np.arange(16) % 20]
+    tb = gmap["targets"][np.arange(16) % 20]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t = Trainer(lite, batch_per_epoch=1, variables=student, arch="lite", device=device,
+                    distill_fn=make_teacher_fn(zoo, device=device), distill_weight=1.0)
+        if device == "cuda":
+            steps, counts["distill"] = counted(lambda: [t.step(xb, tb) for _ in range(3)])
+        else:
+            steps = [t.step(xb, tb)]
+        runs[device] = [{k: float(v) for k, v in m.items()} for m in steps]
+    d_rel = max(abs(runs["cuda"][0][k] - runs["cpu"][0][k]) / abs(runs["cpu"][0][k])
+                for k in ("total", "distill", "conf", "cls"))
+    emit("distill", card=card, student="yolofastest_lite_256x320.npz",
+         teacher="yolofastest_256x320.npz", batch=16, steps=3,
+         losses=[{k: m[k] for k in ("total", "distill")} for m in runs["cuda"]],
+         cpu_first_step={k: runs["cpu"][0][k] for k in ("total", "distill")},
+         first_step_max_rel_vs_cpu=d_rel, tolerance="1e-4 relative", launches=counts["distill"])
+    check(d_rel <= 1e-4, f"distill losses differ from the CPU's by {d_rel}")
+    check(counts["distill"]["res_chain_rows"] == 18 and counts["distill"]["nms"] == 0,
+          f"distill launches {counts['distill']}: want 6 chains a step")
+    return counts
 
 
 def main() -> int:
@@ -938,6 +1250,9 @@ def main() -> int:
         check(t["device_ms"] is not None and 0 < len(seen) <= 5
               and all("nms_packed" in name for name in seen),
               f"the NMS stage runs another kernel than the NMS kernel: {t}")
+
+    # ------------------------------------------------------- training path
+    train_path(card, counted)
 
     # ------------------------------------------------------- kernels summary
     f32 = sums["float32/B64"]

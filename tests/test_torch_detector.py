@@ -13,12 +13,15 @@ import pytest
 import torch
 
 from chip_smoke import box_iou, golden_match, make_frames
+from tests._jax_refs import jax_refs  # noqa: F401 (a fixture)
 from yolofastest_torch.configs import get_config
 from yolofastest_torch.inference import Detector, detections_to_lists
 from yolofastest_torch.models import load_variables, zoo_path
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+# the JAX references of the training and eval tests compile from here on (tests/_jax_refs.py)
+pytestmark = pytest.mark.usefixtures("jax_refs")
 
 
 @pytest.fixture(scope="module")
@@ -119,9 +122,9 @@ def test_no_device_without_card_raises(monkeypatch, setup):
         Detector(get_config("256x320"), variables=setup[0])
 
 
-@pytest.mark.parametrize("kwargs", [{"fold_bn": False}, {"backend": "int8"},
+@pytest.mark.parametrize("kwargs", [{"fold_bn": False, "backend": "int8"}, {"backend": "int8"},
                                     {"backend": "int8-fused"},
-                                    {"fold_bn": False, "arch": "lite", "tta": True}])
+                                    {"backend": "int8-fused", "arch": "lite", "tta": True}])
 def test_unported_options_raise(kwargs, setup):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Detector(get_config("256x320"), variables=setup[0], device="cpu", **kwargs)
@@ -142,6 +145,10 @@ def test_package_imports_no_jax_package():
         "import yolofastest_torch.inference.sliced, yolofastest_torch.inference.track\n"
         "import yolofastest_torch.inference.video, yolofastest_torch.utils.logging\n"
         "import yolofastest_torch.utils.visualize\n"
+        "import yolofastest_torch.train, yolofastest_torch.eval, yolofastest_torch.data\n"
+        "import yolofastest_torch.losses, yolofastest_torch.models.yolo_fastest\n"
+        "import yolofastest_torch.cli.train, yolofastest_torch.cli.evaluate\n"
+        "import yolofastest_torch.utils.metrics\n"
         "bad = [m for m in sys.modules if 'flax' in m or 'yolofastest_tpu' in m]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

@@ -282,8 +282,14 @@ def test_streaming_equals_run_packed(det, frame_batches, depth, threaded):
 
 def test_streaming_detector_options(frame_batches):
     variables = load_variables(zoo_path("256x320"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamingDetector(get_config("256x320"), variables, fold_bn=False, device="cpu")
+    # fold_bn=False streams through the trainable model's eval forward: the
+    # same detections as the folded graph, boxes within 1 px
+    unfolded = list(StreamingDetector(get_config("256x320"), variables, torch.float32,
+                                      fold_bn=False, device="cpu")(iter(frame_batches[:1])))
+    folded = list(StreamingDetector(get_config("256x320"), variables, torch.float32,
+                                    device="cpu")(iter(frame_batches[:1])))
+    np.testing.assert_array_equal(unfolded[0]["count"], folded[0]["count"])
+    np.testing.assert_allclose(unfolded[0]["boxes"], folded[0]["boxes"], atol=1.0)
     with pytest.raises(ValueError, match="depth"):
         StreamingDetector(get_config("256x320"), variables, depth=0, device="cpu")
     sd = StreamingDetector(get_config("256x320"), variables, torch.float32, depth=2,

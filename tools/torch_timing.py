@@ -64,6 +64,39 @@ def device_busy(fn, reps: int):
     return busy / 1e3 / reps, busy / (end - spans[0][0])
 
 
+def span_ms(fn, reps: int, prefix: str):
+    """Per ``torch.profiler.record_function`` span whose name starts with
+    ``prefix`` (the prefix dropped): the device ms of the operations launched
+    inside it and its host ms (under the profiler), per call of ``fn``, from
+    a trace of ``reps`` calls.  The autograd engine runs a backward's
+    operations on a thread of its own, outside the caller's spans: their
+    device ms are under ``"autograd_engine"`` (host ms 0)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        device_ms = (e.device_time_total if hasattr(e, "device_time_total")
+                     else e.cuda_time_total) / 1e3 / reps
+        if e.name.startswith(prefix):
+            key, host_ms = e.name[len(prefix):], e.cpu_time_total / 1e3 / reps
+        elif e.cpu_parent is None and e.name.startswith("autograd::engine::evaluate_function"):
+            key, host_ms = "autograd_engine", 0.0
+        else:
+            continue
+        dev, host = out.get(key, (0.0, 0.0))
+        out[key] = (dev + device_ms, host + host_ms)
+    return out
+
+
 def kernel_device_ms(fn, reps: int, name_part: str):
     """Mean device duration (ms) of one launch of the kernels whose name
     holds ``name_part`` over ``reps`` calls of ``fn``, and the launches seen

@@ -1,10 +1,11 @@
 """End-to-end detection pipeline on the card: preprocess -> folded graph ->
 decode -> NMS.
 
-The port of ``yolofastest_tpu/inference/detector.py`` for the deployed mode,
-``Detector(..., fold_bn=True)`` with the fp backend, both architectures and
-flip TTA.  Everything after image load runs on the detector's device; the
-only host work is cv2 file IO.  On the card no step of the detect path reads
+The port of ``yolofastest_tpu/inference/detector.py`` with the fp backend:
+the deployed mode (``fold_bn=True``, the BN-folded graph over the chain
+kernels) and the training model's eval forward (``fold_bn=False``), both
+architectures and flip TTA.  Everything after image load runs on the
+detector's device; the only host work is cv2 file IO.  On the card no step of the detect path reads
 back to the host, so :meth:`Detector.run_packed` returns before the card is
 done.
 
@@ -28,9 +29,10 @@ import torch
 from yolofastest_torch.configs import Config
 from yolofastest_torch.models import (fold_batchnorm, folded_apply, folded_apply_lite,
                                       torch_params_from_folded)
+from yolofastest_torch.models.yolo_fastest import build_model
 from yolofastest_torch.ops import (batched_nms, decode_heads, preprocess_device,
                                    unpack_detections)
-from yolofastest_torch.utils.device import resolve_device
+from yolofastest_torch.utils.device import exact_fp32, resolve_device
 from yolofastest_torch.utils.visualize import CLASS_COLORS, plot_one_box
 
 
@@ -44,7 +46,10 @@ class Detector:
         ``Detector`` takes the same tree).
       compute_dtype: torch.float32 for parity, torch.bfloat16 for speed.
       logger: where :meth:`batch_detect` logs (default: print).
-      fold_bn: must be True: the port runs the BN-folded graph.
+      fold_bn: True (the default) runs the BN-folded deployment graph, whose
+        six res chains are the chain kernel; False runs the trainable model
+        (:mod:`yolofastest_torch.models.yolo_fastest`) in eval mode, BatchNorm
+        on its running statistics, with plain convolutions.
       device: "cuda" (the default, which needs a card) or "cpu".
       arch: ``"fastest"`` (two heads) or ``"lite"`` (one head; use a
         ``lite-*`` config, whose one anchor group matches it).
@@ -53,8 +58,7 @@ class Detector:
         launch once each, on 2B images), the mirrored candidates are
         un-mirrored, and both sets merge conf-sorted into one NMS.
 
-    Not ported yet (ROADMAP, "Modules": to port): ``fold_bn=False`` (the
-    training model) and the int8 backends.
+    Not ported yet (ROADMAP, "Modules": to port): the int8 backends.
     """
 
     def __init__(
@@ -69,10 +73,6 @@ class Detector:
         arch: str = "fastest",
         tta: bool = False,
     ):
-        if not fold_bn:
-            raise NotImplementedError(
-                "fold_bn=False runs the training model, which the port does not "
-                "have yet (ROADMAP: 'Training model and loss')")
         if backend != "fp":
             raise NotImplementedError(
                 f"backend {backend!r} is not ported yet (ROADMAP: 'Quantisation')")
@@ -85,12 +85,26 @@ class Detector:
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.logger = logger
-        self.params = torch_params_from_folded(fold_batchnorm(variables), self.device,
-                                               compute_dtype)
-        self._apply = folded_apply if arch == "fastest" else folded_apply_lite
+        self.model = None
+        if fold_bn:
+            self.params = torch_params_from_folded(fold_batchnorm(variables), self.device,
+                                                   compute_dtype)
+            self._apply = folded_apply if arch == "fastest" else folded_apply_lite
+        else:
+            io = config.io
+            self.model = build_model(io.num_cls, io.num_anchors, compute_dtype, arch,
+                                     variables).to(self.device).eval()
+            self.params = None
+            self._apply = self._model_apply
         self._warm: set = set()
 
     # ------------------------------------------------------------------ core
+    def _model_apply(self, _params, x, _dtype):
+        """The trainable model's eval forward (it casts under autocast for
+        bf16 itself); fp32 convolutions with TF32 off."""
+        with exact_fp32():
+            return self.model(x)
+
     def _as_input(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 

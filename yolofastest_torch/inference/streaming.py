@@ -39,7 +39,8 @@ class StreamingDetector:
       config: framework config.
       variables: the numpy ``{'params', 'batch_stats'}`` tree.
       compute_dtype: torch.bfloat16 for deployment throughput.
-      fold_bn: must be True: the port runs the BN-folded graph.
+      fold_bn: True runs the BN-folded graph, False the trainable model's
+        eval forward (see :class:`Detector`).
       arch: ``'fastest'`` (two heads) or ``'lite'`` (single head).
       depth: batches in flight before the first result is fetched.  1 is
         synchronous (each batch is fetched right after its dispatch); 2
@@ -58,11 +59,7 @@ class StreamingDetector:
                  compute_dtype=torch.bfloat16, fold_bn: bool = True,
                  arch: str = "fastest", depth: int = 2, threaded: bool = False,
                  device=None):
-        if not fold_bn:
-            raise NotImplementedError(
-                "fold_bn=False runs the training model, which the port does not "
-                "have yet (ROADMAP: 'Training model and loss')")
-        self._setup(Detector(config, variables, compute_dtype, fold_bn=True, arch=arch,
+        self._setup(Detector(config, variables, compute_dtype, fold_bn=fold_bn, arch=arch,
                              device=device), depth, threaded)
 
     @classmethod

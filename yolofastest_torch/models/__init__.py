@@ -1,4 +1,5 @@
-from yolofastest_torch.models.convert import torch_params_from_folded
+from yolofastest_torch.models.convert import (module_state_from_variables,
+                                              torch_params_from_folded, variables_from_module)
 from yolofastest_torch.models.graph import (
     RES_CHAINS,
     Executor,
@@ -10,10 +11,18 @@ from yolofastest_torch.models.graph import (
     walk_topology,
     walk_topology_lite,
 )
+from yolofastest_torch.models.yolo_fastest import (YoloFastest, YoloFastestLite, build_model,
+                                                   count_params)
 from yolofastest_torch.models.zoo import load_variables, save_variables, zoo_path
 
 __all__ = [
     "RES_CHAINS",
+    "YoloFastest",
+    "YoloFastestLite",
+    "build_model",
+    "count_params",
+    "module_state_from_variables",
+    "variables_from_module",
     "Executor",
     "FoldedExecutor",
     "fold_batchnorm",

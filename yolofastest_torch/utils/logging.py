@@ -27,3 +27,14 @@ def config_logger(log_dir: str, log_name: str, name: Optional[str] = None) -> lo
     logger.addHandler(ch)
     logger.propagate = False
     return logger
+
+
+class LineLog:
+    """A logger that keeps its ``info`` lines in ``lines`` (for callers that
+    read back what the trainer or the evaluator logged)."""
+
+    def __init__(self):
+        self.lines = []
+
+    def info(self, msg):
+        self.lines.append(msg)
