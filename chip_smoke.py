@@ -25,9 +25,10 @@ kernel's device time from the profiler beside its back-to-back events time,
 which is the host's pace, and the NMS stage's kernels, device and host time
 per call), train (fit, overfit, card against CPU in float64 and fp32,
 restore, and the step's timing at B=16 and B=64, fp32 and bf16, split by
-its profiler spans), eval, distill, deploy_trained; then
-the ``{"kernels": [...]}`` summary, and last ``{"ok": true, "device":
-{...}}``.  Every path resets the kernel launch counts before it runs and
+its profiler spans), eval, distill, deploy_trained, export (the ``export``
+command's files imported back through the Detector, ``model.pt`` on the
+card, ``detect`` on a checkpoint directory); then the ``{"kernels": [...]}``
+summary, and last ``{"ok": true, "device": {...}}``.  Every path resets the kernel launch counts before it runs and
 checks them after.
 
 Any failed check raises, so the script exits non-zero and prints no ok line;
@@ -517,6 +518,110 @@ def train_path(card, counted) -> dict:
     check(d_rel <= 1e-4, f"distill losses differ from the CPU's by {d_rel}")
     check(counts["distill"]["res_chain_rows"] == 18 and counts["distill"]["nms"] == 0,
           f"distill launches {counts['distill']}: want 6 chains a step")
+    return counts
+
+
+def export_path(card, counted) -> dict:
+    """The export phase on the card: the ``export`` command on the 256x320
+    zoo; ``model.onnx``, ``model.param``/``.bin`` and a reference-layout
+    ``.pth`` (written here from the zoo) imported, each through the folded
+    Detector on the golden frames (34/34; 6 K2 and 1 NMS launch a forward);
+    ``model.pt`` on the card against the folded forward over the chain
+    kernel; ``detect --weights <epoch dir> --fold-bn``.  One JSON line;
+    returns the launch counts of each run."""
+    import contextlib
+    import io
+    import tempfile
+
+    import cv2
+    import torch
+
+    from yolofastest_torch.cli import main as cli_main
+    from yolofastest_torch.configs import get_config
+    from yolofastest_torch.export import import_ncnn, import_onnx
+    from yolofastest_torch.inference import Detector, detections_to_lists
+    from yolofastest_torch.models import (fold_batchnorm, folded_apply, load_variables,
+                                          torch_params_from_folded, unfold_to_variables)
+    from yolofastest_torch.models.torch_io import (load_torch_checkpoint,
+                                                   variables_to_torch_state_dict)
+    from yolofastest_torch.train import Trainer
+    from yolofastest_torch.utils.device import exact_fp32
+
+    t0 = time.perf_counter()
+    cfg = get_config("256x320")
+    zoo_file = os.path.join(WEIGHTS, "yolofastest_256x320.npz")
+    zoo = load_variables(zoo_file)
+    fx = np.load(os.path.join(FIXTURES, "golden_256x320.npz"))
+    frames = make_frames(fx["pre_imgs"])
+    n_img = int(fx["pre_imgs"].shape[0])
+    counts = {}
+    with tempfile.TemporaryDirectory(prefix="yf_export_") as tmp:
+        out = os.path.join(tmp, "export")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli_main(["export", "--weights", zoo_file, "--out", out])
+        check(rc == 0, f"export exited {rc}")
+        sizes = {f: os.path.getsize(os.path.join(out, f)) for f in sorted(os.listdir(out))}
+        pth = os.path.join(tmp, "ref.pth")
+        torch.save(variables_to_torch_state_dict(zoo), pth)
+        trees = {"model.onnx": import_onnx(os.path.join(out, "model.onnx"))[0],
+                 "model.param": unfold_to_variables(
+                     import_ncnn(os.path.join(out, "model.param"))[0]),
+                 "ref.pth": load_torch_checkpoint(pth)}
+        golden = {}
+        for name, variables in trees.items():
+            det = Detector(cfg, variables=variables, device="cuda")
+            got, counts[name] = counted(lambda: det.run_raw(frames))
+            matched, notes = golden_match(detections_to_lists(got), fx["boxes"], n_img)
+            golden[name] = {"matched": matched, "reference": int(fx["boxes"].shape[0]),
+                            "notes": notes[:5], "launches": counts[name]}
+
+        # model.pt (traced at B=1 on the host) on the card, fp32 without TF32,
+        # against the folded forward whose chains are the kernel
+        x = torch.from_numpy((fx["pre_imgs"].astype(np.float32)[:, None] - 128.0)
+                             / 255.0).cuda()
+        scripted = torch.jit.load(os.path.join(out, "model.pt"), map_location="cuda")
+        params = torch_params_from_folded(fold_batchnorm(zoo), "cuda")
+        with torch.no_grad(), exact_fp32():
+            ts_heads = scripted(x)
+            ref_heads, counts["folded_forward"] = counted(
+                lambda: folded_apply(params, x.permute(0, 2, 3, 1)))
+        ts_ratio = max(fp32_ratio(a.permute(0, 2, 3, 1), b) for a, b in zip(ts_heads, ref_heads))
+        ts_err = max(float((a.permute(0, 2, 3, 1) - b).abs().max())
+                     for a, b in zip(ts_heads, ref_heads))
+
+        # detect --weights <a port checkpoint directory> (BN folded: the kernels)
+        ck = Trainer(cfg, batch_per_epoch=1, variables=zoo, device="cuda").save_checkpoint(
+            os.path.join(tmp, "ck"), 1)
+        data, dout = os.path.join(tmp, "data"), os.path.join(tmp, "detect")
+        os.makedirs(data)
+        for i, frame in enumerate(frames[:2]):
+            cv2.imwrite(os.path.join(data, f"g{i}.jpg"), frame)
+        rc, counts["detect"] = counted(lambda: cli_main(
+            ["detect", "--weights", ck, "--data", data, "--out", dout, "--fold-bn",
+             "--device", "cuda"]))
+        detect_files = sorted(os.listdir(dout))
+    emit("export", card=card, res="256x320", files=sizes, golden=golden,
+         torchscript={"heads_max_abs_err": ts_err, "ratio_to_tolerance": ts_ratio,
+                      "tolerance": f"{FP32_TOL} rel+abs of the folded forward (chain "
+                                   "kernel), fp32 without TF32",
+                      "launches_of_the_folded_forward": counts["folded_forward"]},
+         detect_epoch_dir={"rc": rc, "files": detect_files, "launches": counts["detect"]},
+         seconds=time.perf_counter() - t0)
+    for name, g in golden.items():
+        check(g["matched"] == g["reference"] and not g["notes"],
+              f"export: golden from {name}: {g['matched']}/{g['reference']} {g['notes']}")
+        check(g["launches"]["res_chain_rows"] == 6 and g["launches"]["nms"] == 1
+              and g["launches"]["res_chain_cf"] == 0,
+              f"export: {name} launches {g['launches']}, want 6 chains and 1 NMS")
+    check(ts_ratio <= 1.0, f"model.pt heads off the folded forward: {ts_ratio} x tolerance")
+    check(counts["folded_forward"]["res_chain_rows"] == 6,
+          f"folded forward launches {counts['folded_forward']}")
+    c = counts["detect"]
+    check(rc == 0 and detect_files == ["detect_info.log", "result_g0.jpg", "result_g1.jpg"],
+          f"detect --weights <epoch dir>: rc {rc}, files {detect_files}")
+    check(c["nms"] == 3 and c["res_chain_rows"] == 6 * c["nms"],
+          f"detect --weights <epoch dir> launches {c}: want a warm-up and 2 images, "
+          "6 chains and 1 NMS each")
     return counts
 
 
@@ -1253,6 +1358,9 @@ def main() -> int:
 
     # ------------------------------------------------------- training path
     train_path(card, counted)
+
+    # ------------------------------------------------------- export path
+    export_path(card, counted)
 
     # ------------------------------------------------------- kernels summary
     f32 = sums["float32/B64"]

@@ -20,8 +20,9 @@ from yolofastest_torch.models import load_variables, zoo_path
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
-# the JAX references of the training and eval tests compile from here on (tests/_jax_refs.py)
-pytestmark = pytest.mark.usefixtures("jax_refs")
+# the JAX references of the training and eval tests compile from here on (tests/_jax_refs.py),
+# and the module's two fresh processes run beside its first tests
+pytestmark = pytest.mark.usefixtures("jax_refs", "fresh_processes")
 
 
 @pytest.fixture(scope="module")
@@ -130,32 +131,54 @@ def test_unported_options_raise(kwargs, setup):
         Detector(get_config("256x320"), variables=setup[0], device="cpu", **kwargs)
 
 
-def test_package_imports_no_jax_package():
+@pytest.fixture(scope="module")
+def fresh_processes():
+    """The module's two fresh-process checks, started together at its first
+    test so that they run beside the tests in between: the port imported
+    alone, and chip_smoke.py without a card."""
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    procs = {"imports": subprocess.Popen([sys.executable, "-c", IMPORTS_CODE], cwd=ROOT, env=env,
+                                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                         text=True)}
+    if not torch.cuda.is_available():
+        procs["chip_smoke"] = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py")], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    yield procs
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+        p.communicate()
+
+
+IMPORTS_CODE = (
+    "import sys\n"
+    "import yolofastest_torch, yolofastest_torch.inference, yolofastest_torch.kernels\n"
+    "import yolofastest_torch.cli, yolofastest_torch.cli.detect, yolofastest_torch.ops\n"
+    "import yolofastest_torch.cli.serve, yolofastest_torch.kernels.nms\n"
+    "import yolofastest_torch.models, yolofastest_torch.models.prune\n"
+    "import yolofastest_torch.inference.streaming, yolofastest_torch.inference.server\n"
+    "import yolofastest_torch.inference.sliced, yolofastest_torch.inference.track\n"
+    "import yolofastest_torch.inference.video, yolofastest_torch.utils.logging\n"
+    "import yolofastest_torch.utils.visualize\n"
+    "import yolofastest_torch.train, yolofastest_torch.eval, yolofastest_torch.data\n"
+    "import yolofastest_torch.losses, yolofastest_torch.models.yolo_fastest\n"
+    "import yolofastest_torch.cli.train, yolofastest_torch.cli.evaluate\n"
+    "import yolofastest_torch.utils.metrics\n"
+    "import yolofastest_torch.export, yolofastest_torch.quant, yolofastest_torch.cli.export\n"
+    "import yolofastest_torch.models.torch_io, yolofastest_torch.export.torchscript\n"
+    "bad = [m for m in sys.modules if 'flax' in m or 'yolofastest_tpu' in m]\n"
+    "print(bad)\n"
+    "sys.exit(1 if bad else 0)\n")
+
+
+def test_package_imports_no_jax_package(fresh_processes):
     """A fresh process that imports the port loads no yolofastest_tpu and no
     flax module.  (``import torch`` may pull jax in through opt_einsum here,
     so the check names the JAX package and flax, as
     tests/test_export_torch.py:83-89 does.)"""
-    code = (
-        "import sys\n"
-        "import yolofastest_torch, yolofastest_torch.inference, yolofastest_torch.kernels\n"
-        "import yolofastest_torch.cli, yolofastest_torch.cli.detect, yolofastest_torch.ops\n"
-        "import yolofastest_torch.cli.serve, yolofastest_torch.kernels.nms\n"
-        "import yolofastest_torch.models, yolofastest_torch.models.prune\n"
-        "import yolofastest_torch.inference.streaming, yolofastest_torch.inference.server\n"
-        "import yolofastest_torch.inference.sliced, yolofastest_torch.inference.track\n"
-        "import yolofastest_torch.inference.video, yolofastest_torch.utils.logging\n"
-        "import yolofastest_torch.utils.visualize\n"
-        "import yolofastest_torch.train, yolofastest_torch.eval, yolofastest_torch.data\n"
-        "import yolofastest_torch.losses, yolofastest_torch.models.yolo_fastest\n"
-        "import yolofastest_torch.cli.train, yolofastest_torch.cli.evaluate\n"
-        "import yolofastest_torch.utils.metrics\n"
-        "bad = [m for m in sys.modules if 'flax' in m or 'yolofastest_tpu' in m]\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n")
-    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                       text=True, env=env, timeout=300)
-    assert r.returncode == 0, r.stdout + r.stderr
+    out, err = fresh_processes["imports"].communicate(timeout=300)
+    assert fresh_processes["imports"].returncode == 0, out + err
 
 
 def test_sources_import_no_jax():
@@ -164,20 +187,23 @@ def test_sources_import_no_jax():
     for d, _, files in os.walk(os.path.join(ROOT, "yolofastest_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     assert len(paths) > 15
+    for module in ("export/onnx.py", "export/ncnn.py", "export/caffe.py", "export/native.py",
+                   "export/torchscript.py", "quant/ptq.py", "models/torch_io.py",
+                   "cli/export.py"):
+        assert os.path.join(ROOT, "yolofastest_torch", module) in paths, module
     for p in paths:
         with open(p) as f:
             assert not banned.search(f.read()), p
 
 
-def test_chip_smoke_fails_without_card():
+def test_chip_smoke_fails_without_card(fresh_processes):
     """chip_smoke.py exits non-zero and prints no ok line when there is no
     CUDA card (here: the CPU host)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; chip_smoke.py would run in full")
-    r = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")], cwd=ROOT,
-                       capture_output=True, text=True, timeout=300)
-    assert r.returncode != 0
-    assert '"ok": true' not in r.stdout
+    out, _ = fresh_processes["chip_smoke"].communicate(timeout=300)
+    assert fresh_processes["chip_smoke"].returncode != 0
+    assert '"ok": true' not in out
 
 
 def test_cli_detect_cpu(tmp_path):
@@ -202,5 +228,7 @@ def test_cli_detect_cpu(tmp_path):
     assert all("detect finished, infer time:" in ln and "total time:" in ln
                for ln in per_image)
     assert re.search(r"——detect avg_time: [0-9.]+ms$", log[-1])
-    assert main(["detect", "--weights", "w.pth", "--data", str(data),
-                 "--out", str(out), "--device", "cpu"]) == 2
+    # a missing .pth fails in torch.load, as in the JAX package's loader
+    with pytest.raises(FileNotFoundError):
+        main(["detect", "--weights", "w.pth", "--data", str(data), "--out", str(out),
+              "--device", "cpu"])

@@ -2,8 +2,9 @@
 and the NMS with its compaction (``yolofastest_torch.kernels.nms``).
 
 On the CPU the wrappers run their plain PyTorch version; it is held against
-the JAX package's Pallas kernels in interpret mode, at the shapes of
-``tests/test_kernels.py`` plus a pruned width and a ragged plane.  The NMS
+the JAX package's Pallas kernels in interpret mode (run by the workers of
+``tests/_jax_refs.py``), at the shapes of ``tests/test_kernels.py`` plus a
+pruned width and a ragged plane.  The NMS
 plain version in the kernel's formulation is held here against the greedy
 loop and the argsort compaction over edge cases, and against the JAX
 package in tests/test_torch_ops.py.
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests._jax_refs import jax_refs, register  # noqa: F401 (jax_refs: a fixture)
 from yolofastest_torch.kernels import nms as tnms_kernel
 from yolofastest_torch.kernels import res_block as rb
 from yolofastest_torch.ops import nms as tnms
@@ -66,19 +68,38 @@ def _case(shape, seed, scale=0.3):
     return x, st
 
 
+# the inputs of each layout's cases: _case(shape, seed, scale)
+CASE_ARGS = {"cf": (0,), "rows": (1, 0.2)}
+
+
+def _pallas(layout, shape):
+    """The JAX package's Pallas chain kernel in interpret mode on the case of
+    ``shape`` (the channels-first K1 or the row-major K2)."""
+    from yolofastest_tpu.kernels import res_block as jrb
+
+    fn = jrb.fused_res_chain if layout == "cf" else jrb.fused_res_chain_nhwc
+    x, st = _case(shape, *CASE_ARGS[layout])
+    return np.asarray(fn(x, *st, interpret=True))
+
+
+for _layout, _shapes in (("cf", CF_SHAPES), ("rows", ROWS_SHAPES)):
+    for _shape in _shapes:
+        register(f"kernels/{_layout}{_shape}", _pallas, lambda l=_layout, s=_shape: (l, s))
+
+
 @pytest.mark.parametrize("shape", CF_SHAPES)
-def test_plain_cf_matches_pallas(shape, jax_rb):
-    x, st = _case(shape, 0)
-    ref = np.asarray(jax_rb.fused_res_chain(x, *st, interpret=True))
+def test_plain_cf_matches_pallas(shape, jax_refs):  # noqa: F811
+    x, st = _case(shape, *CASE_ARGS["cf"])
+    ref = jax_refs[f"kernels/cf{shape}"]
     got = rb.fused_res_chain(torch.from_numpy(x), *map(torch.from_numpy, st))
     # fp32, summation order only: the tolerance of tests/test_kernels.py:49
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("shape", ROWS_SHAPES)
-def test_plain_rows_matches_pallas(shape, jax_rb):
-    x, st = _case(shape, 1, scale=0.2)
-    ref = np.asarray(jax_rb.fused_res_chain_nhwc(x, *st, interpret=True))
+def test_plain_rows_matches_pallas(shape, jax_refs):  # noqa: F811
+    x, st = _case(shape, *CASE_ARGS["rows"])
+    ref = jax_refs[f"kernels/rows{shape}"]
     got = rb.fused_res_chain_nhwc(torch.from_numpy(x), *map(torch.from_numpy, st))
     # fp32, summation order only: the tolerance of tests/test_kernels.py:74
     np.testing.assert_allclose(got.numpy(), ref, rtol=2e-4, atol=2e-4)

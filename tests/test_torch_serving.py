@@ -407,24 +407,30 @@ def test_detect_video_rejects_bad_sources(det, tmp_path):
 # ------------------------------------------------------------------------ CLI
 @pytest.fixture(scope="module")
 def image_dir(golden, tmp_path_factory):
+    """Two golden frames as .jpg and a third as .png."""
     d = tmp_path_factory.mktemp("images")
-    for i, f in enumerate(make_frames(golden["pre_imgs"][:2])):
-        cv2.imwrite(str(d / f"im{i}.png"), f)
+    for name, f in zip(("im0.jpg", "im1.jpg", "im2.png"), make_frames(golden["pre_imgs"][:3])):
+        cv2.imwrite(str(d / name), f)
     return d
 
 
 @pytest.mark.parametrize("flags", [["--tta"], ["--sliced", "2x2"], ["--tta", "--sliced", "2x2"]],
                          ids=["tta", "sliced", "tta-sliced"])
 def test_cli_detect_tta_sliced_cpu(image_dir, tmp_path, flags):
+    """As in the JAX command, --sliced reads the .jpg files only, and the
+    whole-frame path .jpg, .png and .bmp."""
     from yolofastest_torch.cli import main
 
     out = tmp_path / "out"
     rc = main(["detect", "--config", "256x320", "--weights", zoo_path("256x320"),
                "--data", str(image_dir), "--out", str(out), "--device", "cpu", *flags])
     assert rc == 0
-    assert sorted(os.listdir(out)) == ["detect_info.log", "result_im0.png", "result_im1.png"]
+    want = ["detect_info.log", "result_im0.jpg", "result_im1.jpg"]
+    if "--sliced" not in flags:
+        want.append("result_im2.png")
+    assert sorted(os.listdir(out)) == want
     log = (out / "detect_info.log").read_text()
-    assert log.count("image_name:") == 2 and "detect avg_time:" in log
+    assert log.count("image_name:") == len(want) - 1 and "detect avg_time:" in log
     if "--sliced" in flags:
         assert "2x2 tiles" in log
 
@@ -456,7 +462,7 @@ def test_cli_video_cpu(clip, tmp_path, capsys):
     assert "video done -> frames:10" in (tmp_path / "video_info.log").read_text()
 
 
-def test_cli_serve_cpu(golden):
+def test_cli_serve_cpu(golden, tmp_path):
     """`serve --device cpu --port 0`: the server its arguments build answers
     /healthz and one /detect (serve_forever is the only step left out)."""
     from yolofastest_torch.cli import build_parser
@@ -477,5 +483,8 @@ def test_cli_serve_cpu(golden):
         assert server.batcher.max_batch == 2
     finally:
         server.close()
-    args.weights = "w.pth"
+    args.weights = "w.pth"  # a missing .pth fails in torch.load, as in the JAX loader
+    with pytest.raises(FileNotFoundError):
+        cmd_serve(args)
+    args.weights = str(tmp_path)  # a directory that is no port checkpoint
     assert cmd_serve(args) == 2

@@ -915,7 +915,8 @@ def test_cli_train_resume_and_eval(dataset, golden_voc, jax_refs, tmp_path, caps
     ours = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("mAP:")]
     rc, theirs = jax_refs["train/cli_eval"]
     assert rc == 0 and ours == [f"mAP: {theirs['mAP']:.4f}"] and theirs["mAP"] > 0.3
-    for extra in (["--backend", "int8"], ["--backend", "native"], ["--weights", "w.pth"],
-                  ["--weights", str(tmp_path)]):
+    for extra in (["--backend", "int8"], ["--backend", "native"], ["--weights", str(tmp_path)]):
         args = ev + ["--weights", zoo_path("256x320")] if extra[0] == "--backend" else ev
         assert main(args + extra) == 2, extra
+    with pytest.raises(FileNotFoundError):  # in torch.load, as in the JAX package's loader
+        main(ev + ["--weights", "w.pth"])

@@ -2,13 +2,17 @@
 
 The port's subset of the JAX package's CLI (the fp backend):
 
-  detect    batch-detect a directory of images (also --tta, --sliced RxC)
+  detect    batch-detect a directory of images (also --fold-bn, --tta, --sliced RxC)
   serve     HTTP detection server with dynamic batching
   video     detect over a video file -> annotated video (optionally tracked)
   train     train on a VOC-XML or COCO dataset (checkpoints, validation)
   eval      mAP on a VOC-XML or COCO val set (--backend train | fp)
+  export    weights -> .yfb, ONNX, ncnn, Caffe and TorchScript artifacts
+  convert   reference .pth, ncnn pair or .onnx -> zoo .npz
 
-Each takes ``--device cuda|cpu`` (default cuda).
+The first five take ``--device cuda|cpu`` (default cuda); ``export`` and
+``convert`` run on the host.  ``--weights`` takes a zoo ``.npz``, a
+reference ``.pth``, an ``.onnx`` or a port checkpoint directory.
 
 The other commands of ``python -m yolofastest_tpu`` are not ported yet
 (ROADMAP, "Modules": to port).
@@ -20,6 +24,7 @@ import argparse
 
 from yolofastest_torch.cli.detect import add_detect_parser
 from yolofastest_torch.cli.evaluate import add_eval_parser
+from yolofastest_torch.cli.export import add_export_parsers
 from yolofastest_torch.cli.serve import add_serve_parsers
 from yolofastest_torch.cli.train import add_train_parser
 
@@ -31,6 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
     add_serve_parsers(sub)
     add_train_parser(sub)
     add_eval_parser(sub)
+    add_export_parsers(sub)
     return p
 
 

@@ -4,14 +4,24 @@ Detector."""
 from __future__ import annotations
 
 import os
+import sys
 
 CONFIGS = ["256x320", "512x640", "lite-256x320", "lite-512x640"]
+# The backends of the JAX commands that the port has not ported, with the
+# ROADMAP item that ports each.
+UNPORTED_BACKENDS = {"int8": "Quantisation", "int8-fused": "Quantisation",
+                     "native": "Native engine", "native-int8": "Native engine"}
 
 
 def add_model_args(p) -> None:
-    """``--config``, ``--weights``, ``--arch``, ``--tta`` and ``--device``."""
-    p.add_argument("--config", default="256x320", choices=CONFIGS)
-    p.add_argument("--weights", required=True, help=".npz zoo file")
+    """``--config``, ``--config-json``, ``--weights``, ``--arch``,
+    ``--backend``, ``--tta`` and ``--device``."""
+    add_config_args(p)
+    p.add_argument("--weights", required=True,
+                   help=".npz zoo file, reference .pth, .onnx or a port checkpoint directory")
+    p.add_argument("--backend", default="fp", choices=["fp", "jax", *UNPORTED_BACKENDS],
+                   help="fp (or its alias jax); the int8 and native backends are not "
+                        "ported yet")
     p.add_argument("--arch", default="fastest", choices=["fastest", "lite"],
                    help="model architecture (lite = single-head variant; "
                         "use with a lite-* config)")
@@ -44,23 +54,23 @@ def check_arch_weights(variables, arch: str, path: str) -> None:
                          f"{arch!r}; pass --arch {want}")
 
 
-def build_detector(args, logger=None):
+def build_detector(args, logger=None, fold_bn: bool = True):
     """(config, Detector) from the model arguments, or None after a printed
-    message when --weights is not a zoo file."""
-    from yolofastest_torch.configs import get_config
+    message when --backend is not ported or --weights is a format the port
+    does not read."""
     from yolofastest_torch.inference import Detector
-    from yolofastest_torch.models import load_variables
 
-    if not args.weights.endswith(".npz"):
-        print(f"--weights takes a .npz zoo file; {args.weights!r} is another "
-              "format, whose import is not ported yet (ROADMAP: 'Export and import')")
+    if unported_backend(args.backend):
         return None
-    cfg = get_config(args.config)
+    cfg = get_config(args)
     check_arch_config(cfg, args.arch)
-    variables = load_variables(args.weights)
-    check_arch_weights(variables, args.arch, args.weights)
-    detector = Detector(cfg, variables=variables, logger=logger, device=args.device,
-                        arch=args.arch, tta=args.tta)
+    try:
+        variables = load_weights(args.weights, args.arch)
+    except UnportedWeights as e:
+        print(e, file=sys.stderr)
+        return None
+    detector = Detector(cfg, variables=variables, logger=logger, fold_bn=fold_bn,
+                        device=args.device, arch=args.arch, tta=args.tta)
     return cfg, detector
 
 
@@ -84,28 +94,44 @@ def get_config(args):
     return preset(args.config)
 
 
+def unported_backend(backend: str) -> bool:
+    """True, after a printed message naming its ROADMAP item, for a backend
+    the port has not ported."""
+    if backend not in UNPORTED_BACKENDS:
+        return False
+    print(f"--backend {backend} is not ported yet (ROADMAP: "
+          f"'{UNPORTED_BACKENDS[backend]}')", file=sys.stderr)
+    return True
+
+
 class UnportedWeights(ValueError):
-    """A weights format the port cannot read yet."""
+    """A weights format the port cannot read."""
 
 
 def load_weights(path: str, arch: str = None):
-    """The flax-layout variables tree from a zoo-layout ``.npz`` or a port
-    checkpoint directory (``epoch_<n>/``, the EMA model when it has one).
-    Raises :class:`UnportedWeights` for ``.pth``, ``.onnx`` and the JAX
-    package's orbax checkpoint directories."""
+    """The flax-layout variables tree from a zoo-layout ``.npz``, a reference
+    ``.pth``, an ``.onnx`` (:func:`~yolofastest_torch.export.import_onnx`) or
+    a port checkpoint directory (``epoch_<n>/``, the EMA model when it has
+    one), as the JAX package's loader reads them.  Raises
+    :class:`UnportedWeights` for any other directory (the JAX package's orbax
+    checkpoints among them)."""
     from yolofastest_torch.models import load_variables
+    from yolofastest_torch.models.torch_io import load_torch_checkpoint
     from yolofastest_torch.train.trainer import CHECKPOINT_FILE, checkpoint_variables
 
     if os.path.isdir(path):
         if not os.path.exists(os.path.join(path, CHECKPOINT_FILE)):
             raise UnportedWeights(
                 f"{path} is not a checkpoint of the port (no {CHECKPOINT_FILE}); orbax "
-                "checkpoints of the JAX package are not read (ROADMAP: 'Export and "
-                "import'): save its variables as .npz (models.save_variables) and pass that")
+                "checkpoints of the JAX package are not read: save its variables as .npz "
+                "(models.save_variables) and pass that")
         variables = checkpoint_variables(path)
-    elif path.endswith((".pth", ".onnx")):
-        raise UnportedWeights(f"{path}: .pth and .onnx weights are not ported yet "
-                              "(ROADMAP: 'Export and import'); pass a .npz")
+    elif path.endswith(".pth"):
+        variables = load_torch_checkpoint(path)
+    elif path.endswith(".onnx"):
+        from yolofastest_torch.export import import_onnx
+
+        variables = import_onnx(path)[0]
     else:
         variables = load_variables(path)
     if arch is not None:

@@ -1,9 +1,12 @@
 """`detect` command: batch image detection through the port's Detector.
 
 Flags are the fp subset of ``python -m yolofastest_tpu detect`` plus
-``--device``.  Writes ``result_<image>`` files and ``detect_info.log``
-(reference log format) into ``--out``; ``--sliced RxC`` detects each image
-over an RxC grid of overlapping tiles.
+``--device``.  As there, the trainable graph runs unless ``--fold-bn`` asks
+for the BN-folded deployment graph, whose res chains are the chain kernel;
+``--backend jax`` is the JAX package's alias for ``fp``, and its int8 and
+native backends exit 2.  Writes ``result_<image>`` files and
+``detect_info.log`` (reference log format) into ``--out``; ``--sliced RxC``
+detects each ``.jpg`` over an RxC grid of overlapping tiles.
 """
 
 from __future__ import annotations
@@ -16,6 +19,9 @@ from yolofastest_torch.cli._common import add_model_args, build_detector
 def add_detect_parser(sub) -> None:
     d = sub.add_parser("detect", help="batch-detect a directory of images")
     add_model_args(d)
+    d.add_argument("--fold-bn", action="store_true",
+                   help="run the BN-folded deployment graph (the chain kernel on the card) "
+                        "instead of the trainable graph")
     d.add_argument("--data", required=True)
     d.add_argument("--out", required=True)
     d.add_argument("--batch", type=int, default=1,
@@ -45,7 +51,7 @@ def cmd_detect(args) -> int:
             return 2
     logger = config_logger(args.out, "detect_info.log")
     os.makedirs(args.out, exist_ok=True)
-    built = build_detector(args, logger)
+    built = build_detector(args, logger, fold_bn=args.fold_bn)
     if built is None:
         return 2
     cfg, detector = built
@@ -56,7 +62,7 @@ def cmd_detect(args) -> int:
 
 
 def _sliced_detect_dir(args, cfg, detector, grid, logger) -> int:
-    """detect --sliced RxC: tiled detection over every image in --data; the
+    """detect --sliced RxC: tiled detection over every .jpg in --data; the
     R*C tiles of an image run as ONE batch, and its boxes come out in origin
     pixels after the global NMS."""
     import time
@@ -68,8 +74,7 @@ def _sliced_detect_dir(args, cfg, detector, grid, logger) -> int:
 
     rows, cols = grid
     io = cfg.io
-    names = sorted(f for f in os.listdir(args.data)
-                   if f.lower().endswith((".jpg", ".png", ".bmp")))
+    names = sorted(f for f in os.listdir(args.data) if f.lower().endswith(".jpg"))
     avg = 0.0
     for fn in names:
         ori = cv2.imread(os.path.join(args.data, fn))

@@ -14,11 +14,9 @@ from __future__ import annotations
 import json
 import sys
 
-from yolofastest_torch.cli._common import (UnportedWeights, add_config_args, check_arch_config,
-                                           get_config, load_weights, make_index)
-
-_UNPORTED_BACKENDS = {"int8": "Quantisation", "int8-fused": "Quantisation",
-                      "native": "Native engine", "native-int8": "Native engine"}
+from yolofastest_torch.cli._common import (UNPORTED_BACKENDS, UnportedWeights, add_config_args,
+                                           check_arch_config, get_config, load_weights,
+                                           make_index, unported_backend)
 
 
 def add_eval_parser(sub) -> None:
@@ -27,11 +25,11 @@ def add_eval_parser(sub) -> None:
                    help="dataset layout (see train --format)")
     add_config_args(e)
     e.add_argument("--weights", required=True,
-                   help=".npz zoo-layout weights or a port checkpoint directory")
+                   help=".npz zoo file, reference .pth, .onnx or a port checkpoint directory")
     e.add_argument("--val-dir", required=True)
     e.add_argument("--arch", default="fastest", choices=["fastest", "lite"])
     e.add_argument("--backend", default="train",
-                   choices=["train", "fp", "jax", *_UNPORTED_BACKENDS],
+                   choices=["train", "fp", "jax", *UNPORTED_BACKENDS],
                    help="train (default) = the training-loop evaluator; fp (or its alias "
                         "jax) scores the deployed pipeline (BN-folded, detect-path NMS)")
     e.add_argument("--max-det", type=int, default=None,
@@ -60,9 +58,7 @@ def cmd_eval(args) -> int:
     from yolofastest_torch.utils.logging import config_logger
 
     backend = "fp" if args.backend == "jax" else args.backend
-    if backend in _UNPORTED_BACKENDS:
-        print(f"--backend {backend} is not ported yet (ROADMAP: "
-              f"'{_UNPORTED_BACKENDS[backend]}'); use train or fp", file=sys.stderr)
+    if unported_backend(backend):
         return 2
     if backend == "train" and args.tta:
         print("--tta scores the DEPLOYED pipeline; pick --backend fp", file=sys.stderr)

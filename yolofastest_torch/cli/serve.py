@@ -1,7 +1,7 @@
 """`serve` (HTTP server with dynamic batching) and `video` commands.
 
 The fp subset of ``python -m yolofastest_tpu serve|video`` plus
-``--device``; the int8 and native backends are not ported yet (ROADMAP:
+``--device``; ``--backend`` int8 and native exit 2 (ROADMAP:
 'Quantisation', 'Native engine').
 """
 

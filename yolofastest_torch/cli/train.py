@@ -27,7 +27,7 @@ def add_train_parser(sub) -> None:
     t.add_argument("--epochs", type=int, default=None)
     t.add_argument("--batch-size", type=int, default=None)
     t.add_argument("--pretrained", default=None,
-                   help=".npz zoo-layout weights or a port checkpoint directory")
+                   help=".npz zoo file, reference .pth, .onnx or a port checkpoint directory")
     t.add_argument("--resume", default=None,
                    help="checkpoint directory to resume, or 'latest' for the newest epoch "
                         "in --checkpoint-dir")
