@@ -14,22 +14,26 @@ TTA, sliced detection, streaming, the batcher and HTTP server, video with
 tracking) at full width, then times the main path and the kernels, and
 drives the training path (the Trainer's fit with validation and
 checkpoints, the mAP evaluator through both backends, distillation, a
-trained checkpoint deployed).  Phases print one JSON line each, in order:
-device (after the raw ``nvidia-smi`` line), build, kernels, nms_kernel (the
-NMS kernel's packed rows and keep mask bit for bit against its plain
-version), golden (the main path, whose kernel launches are counted), k1_path
-(the folded forward with its chains through the channels-first kernel),
-bf16, pruned, lite, tta, sliced, timing (with the host return of a B=64
-``run_packed``), streaming, serve, video, kernel_timing (the chains; the NMS
+trained checkpoint deployed), export and the int8 backends.  Phases print
+one JSON line each, in order: device (after the raw ``nvidia-smi`` line),
+build, kernels, nms_kernel (the NMS kernel's packed rows and keep mask bit
+for bit against its plain version), golden (the main path, whose kernel
+launches are counted), k1_path (the folded forward with its chains through
+the channels-first kernel), bf16, pruned, lite, tta, sliced, timing (with
+the host return of a B=64 ``run_packed``), streaming, serve, video, kernel_timing (the chains; the NMS
 kernel's device time from the profiler beside its back-to-back events time,
 which is the host's pace, and the NMS stage's kernels, device and host time
 per call), train (fit, overfit, card against CPU in float64 and fp32,
 restore, and the step's timing at B=16 and B=64, fp32 and bf16, split by
 its profiler spans), eval, distill, deploy_trained, export (the ``export``
 command's files imported back through the Detector, ``model.pt`` on the
-card, ``detect`` on a checkpoint directory); then the ``{"kernels": [...]}``
-summary, and last ``{"ok": true, "device": {...}}``.  Every path resets the kernel launch counts before it runs and
-checks them after.
+card, ``detect`` on a checkpoint directory), int8 (the shipped int8
+artifacts through both int8 backends: golden recall, rows and heads against
+the CPU port, every layer's integer accumulators against exact int64 ones,
+calibration on the card against the CPU with a cache written and read,
+launches, and both backends timed beside fp32); then the ``{"kernels":
+[...]}`` summary, and last ``{"ok": true, "device": {...}}``.  Every path
+resets the kernel launch counts before it runs and checks them after.
 
 Any failed check raises, so the script exits non-zero and prints no ok line;
 without a CUDA card it exits 2 at once.  It imports nothing of JAX.  The
@@ -218,6 +222,40 @@ def rel_l2(a, b) -> float:
 def fp32_ratio(got, ref) -> float:
     """Worst ratio of |got - ref| to the fp32 tolerance: above 1 fails it."""
     return float(((got - ref).abs() / (FP32_TOL + FP32_TOL * ref.abs())).max())
+
+
+def stage_times(det, frames, reps: int = 20) -> dict:
+    """One Detector on one batch of uint8 frames on the card, as the timing
+    phase measures it: CUDA events around preprocess, forward and
+    decode+NMS of ``reps`` calls (after 3 warm ones), whose sum is the
+    latency and gives images/s; the host's wall ms per call; the card's busy
+    ms per ``run_raw`` call and busy share from a profiler trace of 10; and
+    the device operations of one call in a trace of its own."""
+    import torch
+    from torch_timing import device_busy, device_events
+
+    for _ in range(3):
+        det.run_raw(frames)
+    torch.cuda.synchronize()
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(reps)]
+    t0 = time.perf_counter()
+    for e in ev:
+        e[0].record()
+        x = det.preprocess(frames)
+        e[1].record()
+        heads = det.forward_heads(x)
+        e[2].record()
+        det.postprocess(heads, packed=True)
+        e[3].record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    split = [float(np.mean([e[j].elapsed_time(e[j + 1]) for e in ev])) for j in range(3)]
+    busy_ms, busy_share = device_busy(lambda: det.run_raw(frames), 10)
+    return {"preprocess_ms": split[0], "forward_ms": split[1], "decode_nms_ms": split[2],
+            "total_ms": sum(split), "wall_ms": wall,
+            "images_per_s": frames.shape[0] / (sum(split) / 1e3),
+            "device_busy_ms": busy_ms, "device_busy_share": busy_share,
+            "device_ops_per_call": len(device_events(lambda: det.run_raw(frames), 1))}
 
 
 def train_path(card, counted) -> dict:
@@ -622,6 +660,205 @@ def export_path(card, counted) -> dict:
     check(c["nms"] == 3 and c["res_chain_rows"] == 6 * c["nms"],
           f"detect --weights <epoch dir> launches {c}: want a warm-up and 2 images, "
           "6 chains and 1 NMS each")
+    return counts
+
+
+def int8_path(card, counted) -> dict:
+    """The int8 phase on the card: the shipped int8 artifacts through
+    ``Detector(backend="int8"|"int8-fused", int8_artifact=...)`` on the
+    golden frames (recall by the golden suite's rule; rows and heads against
+    the CPU port; launches), the integer accumulators of every int8 layer
+    against exact int64 ones, calibration on the card against the CPU with a
+    cache written and read back, and both backends timed beside fp32.  One
+    JSON line; returns the launch counts of each run."""
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from yolofastest_torch.configs import get_config
+    from yolofastest_torch.inference import Detector, detections_to_lists
+    from yolofastest_torch.models import fold_batchnorm, load_variables
+    from yolofastest_torch.quant import calibrate, ptq
+
+    t0 = time.perf_counter()
+    fixtures = {res: np.load(os.path.join(FIXTURES, f"golden_{res}.npz"))
+                for res in ("256x320", "512x640")}
+    artifacts = {"256x320": ("256x320", "yolofastest_int8_256x320.npz"),
+                 "512x640": ("512x640", "yolofastest_int8_512x640.npz"),
+                 "pruned040_256x320": ("256x320", "yolofastest_int8_pruned040_256x320.npz")}
+
+    def net_input(res, n=None):
+        pre = fixtures[res]["pre_imgs"][:n]
+        return (pre.astype(np.float32)[..., None] - 128.0) / 255.0
+
+    def int8_detector(name, backend, device):
+        res, fname = artifacts[name]
+        return Detector(get_config(res), None, backend=backend, device=device,
+                        int8_artifact=os.path.join(WEIGHTS, fname))
+
+    # -- golden recall, the card against the CPU port, launches per forward
+    counts, golden = {}, {}
+    for name, (res, _) in artifacts.items():
+        fx = fixtures[res]
+        frames, x = make_frames(fx["pre_imgs"]), net_input(res)
+        for backend in ("int8", "int8-fused"):
+            det, cpu = int8_detector(name, backend, "cuda"), int8_detector(name, backend, "cpu")
+            key = f"{name}/{backend}"
+            out, counts[key] = counted(lambda: det.run_raw(frames))
+            rows, rows_cpu = detections_to_lists(out), detections_to_lists(cpu.run_raw(frames))
+            ref = np.array([[b, *r] for b, img in enumerate(rows_cpu) for r in img],
+                           np.float64).reshape(-1, 8)
+            matched, notes = golden_match(rows, ref, len(rows_cpu))
+            heads = [h.cpu().numpy() for h in det.forward_heads(torch.from_numpy(x).cuda())]
+            heads_cpu = [h.numpy() for h in cpu.forward_heads(x)]
+            diff = np.concatenate([np.abs(a - b).ravel() for a, b in zip(heads, heads_cpu)])
+            golden[key] = {
+                "recall_iou_0_5": f"{recall_iou(rows, fx['boxes'])}/{len(fx['boxes'])}",
+                "keep_fp": list(det.keep_fp), "detections": sum(len(r) for r in rows),
+                "rows_vs_cpu": {"matched": matched, "cpu_rows": len(ref), "notes": notes[:3]},
+                "heads_vs_cpu": {"max_abs": float(diff.max()), "mean_abs": float(diff.mean()),
+                                 "share_within_0_05": float(np.mean(diff <= 0.05))},
+                "launches": counts[key]}
+
+    # -- the integer accumulators of every int8 layer, against float64 CPU
+    # convolutions of the same int8 values: every partial sum is an integer
+    # below 2^53, so float64 holds the exact int64 sums
+    records = []
+    products = {"conv": ptq._int_products, "deconv": ptq._deconv_products}
+
+    def recorder(kind):
+        def run(p, xq, *geometry):
+            acc = products[kind](p, xq, *geometry)
+            records.append((kind, p["weight"], xq, acc, geometry))
+            return acc
+        return run
+
+    def exact(kind, weight, xq, geometry):
+        x64 = xq.cpu().double().permute(0, 3, 1, 2)
+        if kind == "deconv":
+            y = F.conv_transpose2d(x64, weight.cpu().double(), None, 2)
+        else:
+            stride, groups, pad = geometry
+            y = F.conv2d(x64, weight.cpu().double(), None, stride, pad, 1, groups)
+        return y.permute(0, 2, 3, 1).to(torch.int64)
+
+    acc_runs, layers_checked, mismatched, not_integral = [], 0, 0, 0
+    for name, backend, b in (("256x320", "int8", 1), ("256x320", "int8", 64),
+                             ("256x320", "int8-fused", 64), ("512x640", "int8", 20),
+                             ("pruned040_256x320", "int8-fused", 20)):
+        det = int8_detector(name, backend, "cuda")
+        res = artifacts[name][0]
+        x = torch.from_numpy(net_input(res)[np.arange(b) % 20]).cuda()
+        ptq._int_products, ptq._deconv_products = recorder("conv"), recorder("deconv")
+        try:
+            det.forward_heads(x)
+        finally:
+            ptq._int_products, ptq._deconv_products = products["conv"], products["deconv"]
+        torch.cuda.synchronize()
+        bad = 0
+        for kind, weight, xq, acc, geometry in records:
+            got = acc.cpu()
+            not_integral += int((got != torch.round(got)).sum())
+            bad += int((got.to(torch.int64) != exact(kind, weight, xq, geometry)).sum())
+        acc_runs.append({"artifact": name, "backend": backend, "batch": b,
+                         "layers": len(records), "mismatched_sums": bad})
+        layers_checked += len(records)
+        mismatched += bad
+        records.clear()
+
+    # -- calibration on the card against the CPU (the 256x320 zoo, 8 frames),
+    # and a cache written and read back
+    folded = fold_batchnorm(load_variables(os.path.join(WEIGHTS, "yolofastest_256x320.npz")))
+    x8 = net_input("256x320", 8)
+    calib = {}
+    for method in ("amax", "mse"):
+        c0 = time.perf_counter()
+        card_scales = calibrate(folded, [x8], method=method, device="cuda")
+        card_s = time.perf_counter() - c0
+        cpu_scales = calibrate(folded, [x8], method=method, device="cpu")
+        amax = calibrate(folded, [x8], device="cpu") if method != "amax" else cpu_scales
+        worst = max(abs(card_scales[k] - v) / ((amax[k] / 2048 if method != "amax" else 0.0)
+                                              + 1e-5 * v) for k, v in cpu_scales.items())
+        calib[method] = {"keys": len(card_scales),
+                         "same_keys_in_order": list(card_scales) == list(cpu_scales),
+                         "max_rel_diff": max(abs(card_scales[k] - v) / v
+                                             for k, v in cpu_scales.items()),
+                         "ratio_to_tolerance": worst, "card_seconds": card_s}
+    with tempfile.TemporaryDirectory(prefix="yf_int8_") as tmp:
+        cache = os.path.join(tmp, "zoo.calib.json")
+        zoo = load_variables(os.path.join(WEIGHTS, "yolofastest_256x320.npz"))
+        wrote = Detector(get_config("256x320"), zoo, backend="int8", calibration=x8,
+                         calibration_cache=cache, device="cuda")
+        with open(cache) as f:
+            on_disk = json.load(f)
+        read = Detector(get_config("256x320"), zoo, backend="int8-fused",
+                        calibration_cache=cache, device="cuda")
+        fxg = fixtures["256x320"]
+        out, counts["calibrated/int8"] = counted(lambda: wrote.run_raw(make_frames(
+            fxg["pre_imgs"])))
+        cache_check = {
+            "written_equals_scales": on_disk == wrote.act_scales,
+            "read_equals_written": list(read.act_scales.items()) == list(on_disk.items()),
+            "calibrated_int8_recall_iou_0_5":
+                f"{recall_iou(detections_to_lists(out), fxg['boxes'])}/{len(fxg['boxes'])}"}
+
+    # -- timing: fp32 and both int8 backends, 256x320, B=1 and B=64
+    frames_all = make_frames(fixtures["256x320"]["pre_imgs"])
+    zoo = load_variables(os.path.join(WEIGHTS, "yolofastest_256x320.npz"))
+    timing = []
+    for backend in ("fp", "int8", "int8-fused"):
+        det = (Detector(get_config("256x320"), zoo, device="cuda") if backend == "fp"
+               else int8_detector("256x320", backend, "cuda"))
+        for b in (1, 64):
+            frames = torch.from_numpy(frames_all[np.arange(b) % 20]).cuda()
+            _, per_forward = counted(lambda: det.run_raw(frames))
+            timing.append({"backend": backend, "dtype": "float32", "batch": b,
+                           **stage_times(det, frames), "launches": per_forward})
+
+    emit("int8", card=card, res={"golden": list(artifacts)}, golden=golden,
+         rows_rule="strict golden rule (tests/test_detect_parity.py:145-171) against the "
+                   "CPU port's rows",
+         heads_tolerance="bit for bit for the fully int8 artifacts; the pruned hybrid "
+                         "artifact's kept fp layers are float32 convolutions in cuDNN's "
+                         "order: every value within 0.5, the mean within 1e-3, 99% within "
+                         "0.05",
+         accumulators={"runs": acc_runs, "layers_checked": layers_checked,
+                       "mismatched_sums": mismatched, "not_integral": not_integral,
+                       "reference": "float64 convolutions on the CPU of the same int8 values "
+                                    "(exact int64 sums), bit for bit"},
+         calibration=calib, calibration_tolerance="amax 1e-5 relative; mse one bin of 2048 "
+                                                  "plus 1e-5 relative",
+         cache=cache_check, timing=timing, seconds=time.perf_counter() - t0)
+    need = {"256x320": 34, "512x640": 33, "pruned040_256x320": 34}
+    for key, g in golden.items():
+        name = key.split("/")[0]
+        check(g["recall_iou_0_5"] == f"{need[name]}/{need[name]}",
+              f"int8 {key}: golden recall {g['recall_iou_0_5']}")
+        check(not g["rows_vs_cpu"]["notes"] and g["rows_vs_cpu"]["matched"]
+              == g["rows_vs_cpu"]["cpu_rows"], f"int8 {key}: rows differ from the CPU's {g}")
+        h = g["heads_vs_cpu"]
+        if g["keep_fp"]:
+            check(h["max_abs"] <= 0.5 and h["mean_abs"] <= 1e-3
+                  and h["share_within_0_05"] >= 0.99, f"int8 {key}: heads off the CPU's {h}")
+        else:
+            check(h["max_abs"] == 0.0, f"int8 {key}: heads not bit for bit the CPU's {h}")
+        c = g["launches"]
+        check(c["nms"] == 1 and c["res_chain_rows"] == 0 and c["res_chain_cf"] == 0,
+              f"int8 {key}: launches {c}, want 1 NMS and no chain kernel a forward")
+    check(mismatched == 0 and not_integral == 0 and layers_checked > 0,
+          f"int8 accumulators: {mismatched} sums differ from int64, {not_integral} not "
+          f"integral, in {layers_checked} layers")
+    for method, c in calib.items():
+        check(c["same_keys_in_order"] and c["ratio_to_tolerance"] <= 1.0,
+              f"calibration {method} on the card off the CPU's: {c}")
+    check(all(v is True for k, v in cache_check.items() if k != "calibrated_int8_recall_iou_0_5"),
+          f"calibration cache: {cache_check}")
+    for t in timing:
+        c = t["launches"]
+        want_chains = 6 if t["backend"] == "fp" else 0
+        check(c["nms"] == 1 and c["res_chain_rows"] == want_chains,
+              f"int8 timing launches {t['backend']} B={t['batch']}: {c}")
     return counts
 
 
@@ -1045,23 +1282,7 @@ def main() -> int:
         det = detector("256x320", dt)
         for b in (1, 64):
             frames = torch.from_numpy(frames_all[np.arange(b) % n_imgs]).to(dev)
-            reps = 20
-            for _ in range(3):
-                det.run_raw(frames)
-            torch.cuda.synchronize()
-            ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(reps)]
-            t0 = time.perf_counter()
-            for e in ev:
-                e[0].record()
-                x = det.preprocess(frames)
-                e[1].record()
-                heads = det.forward_heads(x)
-                e[2].record()
-                det.postprocess(heads, packed=True)
-                e[3].record()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / reps
-            split = [float(np.mean([e[j].elapsed_time(e[j + 1]) for e in ev])) for j in range(3)]
+            run = stage_times(det, frames)
             # per-layer device time of the forward (events around each layer)
             tex = TimedExecutor(det.params, dt)
             with torch.inference_mode(), exact_fp32():
@@ -1072,14 +1293,8 @@ def main() -> int:
             layers = {}
             for kind, s, e in tex.marks:
                 layers[kind] = layers.get(kind, 0.0) + s.elapsed_time(e)
-            busy_ms, busy_share = device_busy(lambda: det.run_raw(frames), 10)
-            timing.append({
-                "dtype": str(dt).split(".")[-1], "batch": b,
-                "preprocess_ms": split[0], "forward_ms": split[1],
-                "decode_nms_ms": split[2], "total_ms": sum(split),
-                "wall_ms": wall, "images_per_s": b / (sum(split) / 1e3),
-                "forward_layers_ms": layers, "device_busy_ms": busy_ms,
-                "device_busy_share": busy_share})
+            timing.append({"dtype": str(dt).split(".")[-1], "batch": b, **run,
+                           "forward_layers_ms": layers})
     # The detect path reads nothing back to the host (the NMS is one
     # kernel), so a B=64 run_packed returns before the card is done:
     # torch's sync debug mode raises on any synchronising operation in it;
@@ -1361,6 +1576,9 @@ def main() -> int:
 
     # ------------------------------------------------------- export path
     export_path(card, counted)
+
+    # ------------------------------------------------------- int8 path
+    int8_path(card, counted)
 
     # ------------------------------------------------------- kernels summary
     f32 = sums["float32/B64"]

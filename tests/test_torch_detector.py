@@ -127,8 +127,18 @@ def test_no_device_without_card_raises(monkeypatch, setup):
                                     {"backend": "int8-fused"},
                                     {"backend": "int8-fused", "arch": "lite", "tta": True}])
 def test_unported_options_raise(kwargs, setup):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Detector(get_config("256x320"), variables=setup[0], device="cpu", **kwargs)
+    """The int8 backends are ported (tests/test_torch_quant.py): without
+    calibration batches or a cache they raise the JAX Detector's ValueError;
+    with them they build (``fold_bn`` does not apply) and detect."""
+    lite = kwargs.get("arch") == "lite"
+    cfg = get_config("lite-256x320" if lite else "256x320")
+    variables = load_variables(zoo_path("lite_256x320")) if lite else setup[0]
+    with pytest.raises(ValueError, match="int8 backends need calibration= batches"):
+        Detector(cfg, variables=variables, device="cpu", **kwargs)
+    x = (setup[1]["pre_imgs"][:1].astype(np.float32)[..., None] - 128.0) / 255.0
+    det = Detector(cfg, variables=variables, device="cpu", calibration=x, **kwargs)
+    assert det.backend == kwargs["backend"] and det.params is None and det.model is None
+    assert int(det.run(x)["count"].sum()) > 0
 
 
 @pytest.fixture(scope="module")
@@ -166,6 +176,8 @@ IMPORTS_CODE = (
     "import yolofastest_torch.cli.train, yolofastest_torch.cli.evaluate\n"
     "import yolofastest_torch.utils.metrics\n"
     "import yolofastest_torch.export, yolofastest_torch.quant, yolofastest_torch.cli.export\n"
+    "import yolofastest_torch.quant.ptq, yolofastest_torch.quant.sensitivity\n"
+    "import yolofastest_torch.quant.zoo\n"
     "import yolofastest_torch.models.torch_io, yolofastest_torch.export.torchscript\n"
     "bad = [m for m in sys.modules if 'flax' in m or 'yolofastest_tpu' in m]\n"
     "print(bad)\n"
@@ -188,8 +200,8 @@ def test_sources_import_no_jax():
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     assert len(paths) > 15
     for module in ("export/onnx.py", "export/ncnn.py", "export/caffe.py", "export/native.py",
-                   "export/torchscript.py", "quant/ptq.py", "models/torch_io.py",
-                   "cli/export.py"):
+                   "export/torchscript.py", "quant/ptq.py", "quant/sensitivity.py",
+                   "quant/zoo.py", "models/torch_io.py", "cli/export.py"):
         assert os.path.join(ROOT, "yolofastest_torch", module) in paths, module
     for p in paths:
         with open(p) as f:

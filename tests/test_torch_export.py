@@ -380,7 +380,7 @@ def test_cli_export_refusals(exports, tmp_path, capsys):
     base = ["export", "--weights", zoo_path("256x320"), "--out", str(tmp_path / "x")]
     assert main(base + ["--calib-data", str(tmp_path)]) == 2
     assert main(base + ["--qat-steps", "3"]) == 2
-    assert "ROADMAP: 'Quantisation'" in capsys.readouterr().err
+    assert "ROADMAP: 'Quantisation, part 2'" in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "x")
     with pytest.raises(SystemExit, match="single-head"):
         main(["export", "--weights", str(exports["lite"]["root"] / "port/model.onnx"), "--out",
@@ -590,13 +590,25 @@ def test_cli_detect_matches_jax_command(jax_refs, epoch_dir, tmp_path, name):  #
 
 
 def test_cli_detect_rejects_unported_backends(tmp_path, capsys):
+    """The native backends exit 2 naming their ROADMAP item; the int8 ones
+    are ported (tests/test_torch_quant.py) and, with no images to calibrate
+    on and no cache, exit 2 with the JAX commands' messages instead."""
     from yolofastest_torch.cli import main
 
-    base = ["--weights", zoo_path("256x320"), "--device", "cpu"]
-    for backend, item in (("int8", "Quantisation"), ("int8-fused", "Quantisation"),
-                          ("native", "Native engine"), ("native-int8", "Native engine")):
+    base = ["--weights", zoo_path("256x320"), "--device", "cpu", "--calibration-cache",
+            str(tmp_path / "c.json")]
+    for backend, item in (("native", "Native engine"), ("native-int8", "Native engine")):
         assert main(["detect", *base, "--data", str(tmp_path), "--out", str(tmp_path / "o"),
                      "--backend", backend]) == 2
         assert main(["video", *base, "--video", "v.avi", "--out", str(tmp_path / "o"),
                      "--backend", backend]) == 2
         assert f"ROADMAP: '{item}'" in capsys.readouterr().err
+    for backend in ("int8", "int8-fused"):
+        assert main(["detect", *base, "--data", str(tmp_path), "--out", str(tmp_path / "o"),
+                     "--backend", backend]) == 2
+        assert f"no calibration images (.jpg/.png/.bmp) in {tmp_path}" in capsys.readouterr().out
+        assert main(["video", *base, "--video", "v.avi", "--out", str(tmp_path / "o"),
+                     "--backend", backend]) == 2
+        err = capsys.readouterr().err
+        assert "int8 calibration needs images: pass --calib-data" in err and "ROADMAP" not in err
+    assert not os.path.exists(tmp_path / "c.json")

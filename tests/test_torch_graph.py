@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests._jax_refs import jax_refs, register  # noqa: F401 (jax_refs: a fixture)
 from yolofastest_torch.models import (Executor, FoldedExecutor, fold_batchnorm,
                                       folded_apply, load_variables,
                                       torch_params_from_folded, walk_topology, zoo_path)
@@ -55,13 +56,28 @@ def test_zoo_round_trip(tmp_path, zoo256):
         np.testing.assert_array_equal(a, b)
 
 
-def test_folded_apply_matches_jax(zoo256):
+def _random_inputs():
+    return np.random.default_rng(0).uniform(-0.5, 0.5, (2, 64, 96, 1)).astype(np.float32)
+
+
+def _jax_folded_apply():
+    """The JAX folded forward of the 256x320 zoo on :func:`_random_inputs`,
+    jitted, in a worker of tests/_jax_refs.py."""
+    folded = fold_batchnorm(load_variables(zoo_path("256x320")))
+    out = jax.jit(jgraph.folded_apply)(jax.tree.map(jnp.asarray, folded),
+                                       jnp.asarray(_random_inputs()))
+    return jax.tree.map(np.asarray, out)
+
+
+register("graph/folded_apply", _jax_folded_apply)
+
+
+def test_folded_apply_matches_jax(zoo256, jax_refs):  # noqa: F811
     """Real 256x320 weights on random 64x96 inputs; fp32 on both sides, sums
     in another order: atol 1e-4."""
     _, folded, params = zoo256
-    x = np.random.default_rng(0).uniform(-0.5, 0.5, (2, 64, 96, 1)).astype(np.float32)
-    ours = folded_apply(params, torch.from_numpy(x))
-    theirs = jax.jit(jgraph.folded_apply)(jax.tree.map(jnp.asarray, folded), jnp.asarray(x))
+    ours = folded_apply(params, torch.from_numpy(_random_inputs()))
+    theirs = jax_refs["graph/folded_apply"]
     for o, t in zip(ours, theirs):
         assert tuple(o.shape) == t.shape
         np.testing.assert_allclose(o.numpy(), np.asarray(t), atol=1e-4)

@@ -915,8 +915,15 @@ def test_cli_train_resume_and_eval(dataset, golden_voc, jax_refs, tmp_path, caps
     ours = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("mAP:")]
     rc, theirs = jax_refs["train/cli_eval"]
     assert rc == 0 and ours == [f"mAP: {theirs['mAP']:.4f}"] and theirs["mAP"] > 0.3
-    for extra in (["--backend", "int8"], ["--backend", "native"], ["--weights", str(tmp_path)]):
+    for extra in (["--backend", "native-int8"], ["--backend", "native"],
+                  ["--weights", str(tmp_path)]):
         args = ev + ["--weights", zoo_path("256x320")] if extra[0] == "--backend" else ev
         assert main(args + extra) == 2, extra
+    # int8 is ported (tests/test_torch_quant.py): without calibration images or a
+    # cache it exits 2 with the JAX command's message
+    capsys.readouterr()
+    assert main(ev + ["--weights", zoo_path("256x320"), "--backend", "int8",
+                      "--calibration-cache", str(tmp_path / "c.json")]) == 2
+    assert "int8 calibration needs images: pass --calib-data" in capsys.readouterr().err
     with pytest.raises(FileNotFoundError):  # in torch.load, as in the JAX package's loader
         main(ev + ["--weights", "w.pth"])

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from chip_smoke import box_iou
+from tests._jax_refs import jax_refs, register  # noqa: F401 (jax_refs: a fixture)
 from yolofastest_torch.configs import get_config
 from yolofastest_torch.inference import Detector, detections_to_lists
 from yolofastest_torch.inference import detector as tdetector
@@ -60,15 +61,29 @@ def _assert_trees_equal(a, b):
 
 
 # ------------------------------------------------------------------------ lite
-def test_folded_apply_lite_matches_jax():
+def _lite_inputs():
+    return np.random.default_rng(0).uniform(-0.5, 0.5, (2, 64, 96, 1)).astype(np.float32)
+
+
+def _jax_folded_apply_lite():
+    """The JAX lite forward on :func:`_lite_inputs`, jitted, in a worker of
+    tests/_jax_refs.py."""
+    folded = fold_batchnorm(load_variables(zoo_path("lite_256x320")))
+    return np.asarray(jax.jit(jgraph.folded_apply_lite)(jax.tree.map(jnp.asarray, folded),
+                                                        jnp.asarray(_lite_inputs())))
+
+
+register("variants/folded_apply_lite", _jax_folded_apply_lite)
+
+
+def test_folded_apply_lite_matches_jax(jax_refs):  # noqa: F811
     """Real lite 256x320 weights on random 64x96 inputs, fp32 both sides, sums
     in another order: atol 1e-4.  The lite walk groups its 18 res blocks into
     the six chains of the full graph."""
     folded = fold_batchnorm(load_variables(zoo_path("lite_256x320")))
     params = torch_params_from_folded(folded, "cpu")
-    x = np.random.default_rng(0).uniform(-0.5, 0.5, (2, 64, 96, 1)).astype(np.float32)
-    ours = folded_apply_lite(params, torch.from_numpy(x))
-    theirs = jax.jit(jgraph.folded_apply_lite)(jax.tree.map(jnp.asarray, folded), jnp.asarray(x))
+    ours = folded_apply_lite(params, torch.from_numpy(_lite_inputs()))
+    theirs = jax_refs["variants/folded_apply_lite"]
     assert tuple(ours.shape) == theirs.shape == (2, 2, 3, 24)
     np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), atol=1e-4)
 
@@ -204,16 +219,25 @@ def tta_detector():
                     tta=True, device="cpu")
 
 
-def test_tta_run_packed_matches_jax(tta_detector):
+def _jax_tta_run_packed():
+    """The JAX TTA Detector's run_packed on 2 golden frames (a worker of
+    tests/_jax_refs.py)."""
+    jdet = JDetector(jget_config("256x320"), variables=load_variables(zoo_path("256x320")),
+                     fold_bn=True, tta=True)
+    return np.asarray(jdet.run_packed(jnp.asarray(_net(_golden("256x320")["pre_imgs"][:2]))))
+
+
+register("variants/tta_run_packed", _jax_tta_run_packed)
+
+
+def test_tta_run_packed_matches_jax(tta_detector, jax_refs):  # noqa: F811
     """B=2 frames through both TTA detectors (fp32, the same numpy weights):
     equal counts, validity and classes; boxes within 1 px and confidences
     within 1e-4 (summation order only), as test_torch_detector.py holds the
     plain detector."""
     x = _net(_golden("256x320")["pre_imgs"][:2])
-    jdet = JDetector(jget_config("256x320"), variables=load_variables(zoo_path("256x320")),
-                     fold_bn=True, tta=True)
     ours = tta_detector.run_packed(x).numpy()
-    theirs = np.asarray(jdet.run_packed(jnp.asarray(x)))
+    theirs = jax_refs["variants/tta_run_packed"]
     assert ours.shape == theirs.shape == (2, 64, 8)
     np.testing.assert_array_equal(ours[..., 7], theirs[..., 7])
     np.testing.assert_array_equal(ours[..., 6], theirs[..., 6])

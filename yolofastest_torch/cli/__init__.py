@@ -1,12 +1,13 @@
 """Command-line interface: ``python -m yolofastest_torch <command>``.
 
-The port's subset of the JAX package's CLI (the fp backend):
+The port's subset of the JAX package's CLI (the fp, int8 and int8-fused
+backends):
 
   detect    batch-detect a directory of images (also --fold-bn, --tta, --sliced RxC)
   serve     HTTP detection server with dynamic batching
   video     detect over a video file -> annotated video (optionally tracked)
   train     train on a VOC-XML or COCO dataset (checkpoints, validation)
-  eval      mAP on a VOC-XML or COCO val set (--backend train | fp)
+  eval      mAP on a VOC-XML or COCO val set (--backend train | fp | int8 | int8-fused)
   export    weights -> .yfb, ONNX, ncnn, Caffe and TorchScript artifacts
   convert   reference .pth, ncnn pair or .onnx -> zoo .npz
 

@@ -1,5 +1,14 @@
-"""Helpers shared by the port's commands: config, weights, datasets and the
-Detector."""
+"""Helpers shared by the port's commands: config, weights, datasets, int8
+calibration and the Detector.
+
+The int8 helpers are the JAX package's (``yolofastest_tpu/cli/_common.py``)
+under the port's names: ``load_calibration`` (``_load_calibration``),
+``calib_kwargs``, ``int8_cache_path``, ``resolve_int8_calibration``
+(``_resolve_jax_int8_calibration``), ``parse_keep_fp``, ``resolve_int8_zoo``
+and ``add_int8_args`` (the flags of ``parser.py``, with
+``_add_calib_method_flags``); ``build_detector`` is the Detector branch of
+``_build_engine``.
+"""
 
 from __future__ import annotations
 
@@ -9,19 +18,21 @@ import sys
 CONFIGS = ["256x320", "512x640", "lite-256x320", "lite-512x640"]
 # The backends of the JAX commands that the port has not ported, with the
 # ROADMAP item that ports each.
-UNPORTED_BACKENDS = {"int8": "Quantisation", "int8-fused": "Quantisation",
-                     "native": "Native engine", "native-int8": "Native engine"}
+UNPORTED_BACKENDS = {"native": "Native engine", "native-int8": "Native engine"}
+INT8_BACKENDS = ("int8", "int8-fused")
 
 
 def add_model_args(p) -> None:
     """``--config``, ``--config-json``, ``--weights``, ``--arch``,
-    ``--backend``, ``--tta`` and ``--device``."""
+    ``--backend``, ``--tta``, ``--device`` and the int8 flags."""
     add_config_args(p)
     p.add_argument("--weights", required=True,
                    help=".npz zoo file, reference .pth, .onnx or a port checkpoint directory")
-    p.add_argument("--backend", default="fp", choices=["fp", "jax", *UNPORTED_BACKENDS],
-                   help="fp (or its alias jax); the int8 and native backends are not "
-                        "ported yet")
+    p.add_argument("--backend", default="fp",
+                   choices=["fp", "jax", *INT8_BACKENDS, *UNPORTED_BACKENDS],
+                   help="fp (or its alias jax); int8 = per-layer int8 weights and inputs, "
+                        "int8-fused = end-to-end int8 activations; the native backends are "
+                        "not ported yet")
     p.add_argument("--arch", default="fastest", choices=["fastest", "lite"],
                    help="model architecture (lite = single-head variant; "
                         "use with a lite-* config)")
@@ -30,6 +41,33 @@ def add_model_args(p) -> None:
                         "batch rides the same forward and both candidate sets "
                         "merge into one NMS")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    add_int8_args(p)
+
+
+def add_int8_args(p) -> None:
+    """The int8 backends' flags: ``--int8-zoo``, ``--keep-fp``,
+    ``--calib-data``, ``--calibration-cache``, ``--calib-method`` and
+    ``--calib-percentile``."""
+    p.add_argument("--int8-zoo", nargs="?", const="auto", default=None, metavar="PATH",
+                   help="deploy the SHIPPED int8 artifact (refined weights + frozen scales, "
+                        "full golden recall on every int8 backend) instead of calibrating; "
+                        "bare flag resolves weights/yolofastest_int8_<config>.npz")
+    p.add_argument("--keep-fp", default=None, metavar="L1,L2,...",
+                   help="mixed precision for --backend int8: these folded-graph layers run "
+                        "the fp kernel")
+    p.add_argument("--calib-data", default=None,
+                   help="calibration image dir for the int8 backends (detect: default "
+                        "--data)")
+    p.add_argument("--calibration-cache", default=None,
+                   help="JSON file for int8 activation scales (default: "
+                        "<weights>.calib.json)")
+    p.add_argument("--calib-method", default="amax",
+                   choices=["amax", "mse", "percentile", "entropy"],
+                   help="int8 activation-scale algorithm: amax (exact range, default), mse "
+                        "(min-quant-error clip), percentile, entropy (KL). Non-amax methods "
+                        "get their own cache file suffix")
+    p.add_argument("--calib-percentile", type=float, default=99.99,
+                   help="clip percentile for --calib-method percentile")
 
 
 def check_arch_config(cfg, arch: str) -> None:
@@ -54,24 +92,134 @@ def check_arch_weights(variables, arch: str, path: str) -> None:
                          f"{arch!r}; pass --arch {want}")
 
 
-def build_detector(args, logger=None, fold_bn: bool = True):
+def build_detector(args, logger=None, fold_bn: bool = True, calib_data=None, cfg=None):
     """(config, Detector) from the model arguments, or None after a printed
-    message when --backend is not ported or --weights is a format the port
-    does not read."""
+    message: a backend the port has not ported, a weights format it does not
+    read, or a misused int8 flag.  An int8 backend without ``--int8-zoo``
+    takes its scales from the calibration cache, or calibrates on the first
+    8 images of ``calib_data`` and writes the cache.  ``cfg`` defaults to
+    the arguments' config."""
     from yolofastest_torch.inference import Detector
 
-    if unported_backend(args.backend):
+    backend = "fp" if args.backend == "jax" else args.backend
+    if unported_backend(backend):
         return None
-    cfg = get_config(args)
-    check_arch_config(cfg, args.arch)
+    if cfg is None:
+        cfg = get_config(args)
+        check_arch_config(cfg, args.arch)
+    zoo8 = resolve_int8_zoo(args, backend)
+    if zoo8 == "error":
+        return None
     try:
         variables = load_weights(args.weights, args.arch)
     except UnportedWeights as e:
         print(e, file=sys.stderr)
         return None
+    keep_fp = parse_keep_fp(args, backend)
+    if keep_fp is None:
+        return None
+    calibration = cache = None
+    if backend in INT8_BACKENDS and not zoo8:
+        resolved = resolve_int8_calibration(args, cfg, calib_data)
+        if resolved is None:
+            return None
+        calibration, cache = resolved
+    ck = calib_kwargs(args)
     detector = Detector(cfg, variables=variables, logger=logger, fold_bn=fold_bn,
-                        device=args.device, arch=args.arch, tta=args.tta)
+                        device=args.device, backend=backend, arch=args.arch, tta=args.tta,
+                        calibration=calibration, calibration_cache=cache,
+                        calib_method=ck["method"], calib_percentile=ck["percentile"],
+                        keep_fp=keep_fp, int8_artifact=zoo8)
     return cfg, detector
+
+
+def load_calibration(data_dir: str, io, k: int = 8):
+    """First ``k`` images of a directory as one net-input batch (the int8
+    calibration recipe), or ``None`` after a printed message when the
+    directory holds no readable images."""
+    import numpy as np
+
+    from yolofastest_torch.inference.detector import load_net_input
+
+    names = sorted(f for f in os.listdir(data_dir)
+                   if f.lower().endswith((".jpg", ".png", ".bmp")))[:k]
+    if not names:
+        print(f"no calibration images (.jpg/.png/.bmp) in {data_dir}")
+        return None
+    return np.concatenate([load_net_input(os.path.join(data_dir, n), io)[0] for n in names])
+
+
+def calib_kwargs(args) -> dict:
+    """Calibration-algorithm kwargs shared by every int8 entry point."""
+    return {"method": getattr(args, "calib_method", "amax"),
+            "percentile": getattr(args, "calib_percentile", 99.99)}
+
+
+def int8_cache_path(args) -> str:
+    """The scale cache: ``--calibration-cache``, else beside ``--weights``
+    with a suffix that encodes the calibration method (amax keeps the bare
+    ``.calib.json``)."""
+    if args.calibration_cache:
+        return args.calibration_cache
+    method = getattr(args, "calib_method", "amax")
+    if method == "percentile":
+        suffix = ".calib-percentile%g.json" % getattr(args, "calib_percentile", 99.99)
+    elif method != "amax":
+        suffix = f".calib-{method}.json"
+    else:
+        suffix = ".calib.json"
+    return os.path.splitext(args.weights)[0] + suffix
+
+
+def resolve_int8_calibration(args, cfg, data_dir):
+    """Cache-or-calibrate resolution for the int8 backends: ``(calibration
+    batch or None, cache path)`` for the Detector (None on a cache hit: the
+    Detector reads the file), or ``None`` after a printed message."""
+    cache = int8_cache_path(args)
+    if os.path.exists(cache):
+        return None, cache
+    if not data_dir:
+        print("int8 calibration needs images: pass --calib-data (or reuse "
+              f"an existing cache at {cache})", file=sys.stderr)
+        return None
+    cal = load_calibration(data_dir, cfg.io)
+    if cal is None:
+        return None
+    return cal, cache
+
+
+def parse_keep_fp(args, backend) -> tuple:
+    """``--keep-fp a,b,c`` -> layer-name tuple.  Returns ``None`` after a
+    printed message when the flag is set on a backend that cannot mix."""
+    keep = tuple(s for s in (getattr(args, "keep_fp", None) or "").split(",") if s)
+    if keep and backend not in INT8_BACKENDS:
+        print("--keep-fp (mixed precision) applies to the int8 backends "
+              "(int8 / int8-fused) only", file=sys.stderr)
+        return None
+    if keep and getattr(args, "int8_zoo", None):
+        print("--keep-fp and --int8-zoo are exclusive (the zoo artifact "
+              "already fixes the per-layer deployment)", file=sys.stderr)
+        return None
+    return keep
+
+
+def resolve_int8_zoo(args, backend):
+    """``--int8-zoo [PATH]`` -> artifact path (or None when unused); 'auto'
+    (the bare flag) is the shipped artifact of ``--config``.  Returns the
+    string "error" after a printed message."""
+    from yolofastest_torch.quant import int8_zoo_path
+
+    want = getattr(args, "int8_zoo", None)
+    if not want:
+        return None
+    if backend not in (*INT8_BACKENDS, "native-int8"):
+        print("--int8-zoo applies to the int8 backends only", file=sys.stderr)
+        return "error"
+    path = int8_zoo_path(args.config) if want == "auto" else want
+    if not os.path.exists(path):
+        print(f"--int8-zoo: artifact not found: {path}", file=sys.stderr)
+        return "error"
+    return path
 
 
 def add_config_args(p) -> None:

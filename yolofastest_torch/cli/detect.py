@@ -1,9 +1,12 @@
 """`detect` command: batch image detection through the port's Detector.
 
-Flags are the fp subset of ``python -m yolofastest_tpu detect`` plus
-``--device``.  As there, the trainable graph runs unless ``--fold-bn`` asks
-for the BN-folded deployment graph, whose res chains are the chain kernel;
-``--backend jax`` is the JAX package's alias for ``fp``, and its int8 and
+Flags are those of ``python -m yolofastest_tpu detect`` plus ``--device``
+and ``--calib-data``.  As there, the trainable graph runs unless
+``--fold-bn`` asks for the BN-folded deployment graph, whose res chains are
+the chain kernel; ``--backend jax`` is the JAX package's alias for ``fp``;
+``--backend int8|int8-fused`` runs the int8 graph (``--int8-zoo`` for the
+shipped artifact, else scales from the cache or calibrated on the first 8
+images of ``--calib-data``, by default ``--data``; ``--keep-fp``); the
 native backends exit 2.  Writes ``result_<image>`` files and
 ``detect_info.log`` (reference log format) into ``--out``; ``--sliced RxC``
 detects each ``.jpg`` over an RxC grid of overlapping tiles.
@@ -51,7 +54,8 @@ def cmd_detect(args) -> int:
             return 2
     logger = config_logger(args.out, "detect_info.log")
     os.makedirs(args.out, exist_ok=True)
-    built = build_detector(args, logger, fold_bn=args.fold_bn)
+    built = build_detector(args, logger, fold_bn=args.fold_bn,
+                           calib_data=args.calib_data or args.data)
     if built is None:
         return 2
     cfg, detector = built

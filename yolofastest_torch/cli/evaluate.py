@@ -3,10 +3,11 @@
 The flags of ``python -m yolofastest_tpu eval`` that the port supports, plus
 ``--device``.  ``--backend train`` (the default) scores the trainable model
 through the training-loop evaluator (float boxes, the reference's
-``validate.py`` conventions); ``--backend fp`` scores the deployed pipeline,
-the port's :class:`~yolofastest_torch.inference.Detector` (BN-folded graph,
-detect-path rounding and NMS).  The int8 and native backends answer with
-exit code 2 (ROADMAP: 'Quantisation', 'Native engine').
+``validate.py`` conventions); ``--backend fp|int8|int8-fused`` scores the
+deployed pipeline, the port's :class:`~yolofastest_torch.inference.Detector`
+(the BN-folded or the int8 graph, detect-path rounding and NMS; the int8
+flags as in ``detect``).  The native backends answer with exit code 2
+(ROADMAP: 'Native engine').
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from __future__ import annotations
 import json
 import sys
 
-from yolofastest_torch.cli._common import (UNPORTED_BACKENDS, UnportedWeights, add_config_args,
+from yolofastest_torch.cli._common import (INT8_BACKENDS, UNPORTED_BACKENDS, UnportedWeights,
+                                           add_config_args, add_int8_args, build_detector,
                                            check_arch_config, get_config, load_weights,
                                            make_index, unported_backend)
 
@@ -29,9 +31,10 @@ def add_eval_parser(sub) -> None:
     e.add_argument("--val-dir", required=True)
     e.add_argument("--arch", default="fastest", choices=["fastest", "lite"])
     e.add_argument("--backend", default="train",
-                   choices=["train", "fp", "jax", *UNPORTED_BACKENDS],
-                   help="train (default) = the training-loop evaluator; fp (or its alias "
-                        "jax) scores the deployed pipeline (BN-folded, detect-path NMS)")
+                   choices=["train", "fp", "jax", *INT8_BACKENDS, *UNPORTED_BACKENDS],
+                   help="train (default) = the training-loop evaluator; any other choice "
+                        "scores the DEPLOYED pipeline (BN-folded or int8, detect-path NMS) "
+                        "through that backend")
     e.add_argument("--max-det", type=int, default=None,
                    help="override the per-image detection budget (config default 64); the "
                         "decode pool grows to at least 2x this")
@@ -41,11 +44,13 @@ def add_eval_parser(sub) -> None:
                    help="with --coco-map: pycocotools' exact conventions (standard IOU, "
                         "101-point AP)")
     e.add_argument("--tta", action="store_true",
-                   help="horizontal-flip test-time augmentation (deployed fp backend)")
+                   help="horizontal-flip test-time augmentation (deployed backends "
+                        "fp/int8/int8-fused)")
     e.add_argument("--json-out", default=None,
                    help="also write the full metrics dict as JSON to this path")
     e.add_argument("--log-dir", default="logs")
     e.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    add_int8_args(e)
     e.set_defaults(fn=cmd_eval)
 
 
@@ -54,14 +59,18 @@ def cmd_eval(args) -> int:
 
     from yolofastest_torch.data import DetectionLoader
     from yolofastest_torch.eval import COCO_IOU_GRID, MAPEvaluator, make_backend_eval_fn
-    from yolofastest_torch.inference import Detector
     from yolofastest_torch.utils.logging import config_logger
 
     backend = "fp" if args.backend == "jax" else args.backend
     if unported_backend(backend):
         return 2
     if backend == "train" and args.tta:
-        print("--tta scores the DEPLOYED pipeline; pick --backend fp", file=sys.stderr)
+        print("--tta scores the DEPLOYED pipeline; pick a deployment backend (e.g. "
+              "--backend fp)", file=sys.stderr)
+        return 2
+    if backend == "train" and args.int8_zoo:
+        print("--int8-zoo scores the SHIPPED int8 deployment; pick an int8 backend (e.g. "
+              "--backend int8)", file=sys.stderr)
         return 2
     strict_kw = {}
     if args.coco_strict:
@@ -76,21 +85,23 @@ def cmd_eval(args) -> int:
             raise SystemExit(f"--max-det must be >= 1, got {args.max_det}")
         cfg = dataclasses.replace(cfg, io=dataclasses.replace(
             cfg.io, max_det=args.max_det, max_decode=max(cfg.io.max_decode, 2 * args.max_det)))
-    try:
-        variables = load_weights(args.weights, args.arch)
-    except UnportedWeights as e:
-        print(e, file=sys.stderr)
-        return 2
     logger = config_logger(args.log_dir, "eval_info.log")
     idx = make_index(args.val_dir, cfg.io.class_names, logger, fmt=args.format)
     loader = DetectionLoader(idx, cfg, augment=False, shuffle=False, drop_last=False)
     iou_thresholds = COCO_IOU_GRID if args.coco_map else None
     if backend == "train":
+        try:
+            variables = load_weights(args.weights, args.arch)
+        except UnportedWeights as e:
+            print(e, file=sys.stderr)
+            return 2
         evaluator = MAPEvaluator(cfg, loader, logger=logger, arch=args.arch,
                                  iou_thresholds=iou_thresholds, device=args.device, **strict_kw)
     else:
-        engine = Detector(cfg, variables=variables, fold_bn=True, arch=args.arch, tta=args.tta,
-                          device=args.device)
+        built = build_detector(args, calib_data=args.calib_data, cfg=cfg)
+        if built is None:
+            return 2
+        engine = built[1]
         evaluator = MAPEvaluator(cfg, loader, logger=logger, arch=args.arch,
                                  eval_fn=make_backend_eval_fn(engine, max_det=cfg.io.max_det),
                                  iou_thresholds=iou_thresholds, **strict_kw)

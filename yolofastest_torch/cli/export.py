@@ -8,7 +8,8 @@ writers and readers are numpy, and the TorchScript trace runs on the CPU.
 ``model.prototxt`` + ``model.caffemodel`` and ``model.pt``.  The JAX
 command's ``forward``/``detect`` ``.stablehlo`` and ``.mlir`` files are JAX
 programs and are not written; ``--calib-data`` and ``--qat-steps`` (the
-int8 artifacts with activation scales) exit 2 until quantisation is ported.
+int8 artifacts with activation scales) exit 2 until the ROADMAP item
+'Quantisation, part 2' ports them.
 ``convert`` writes a zoo-layout ``.npz`` from a ``.pth`` (or ``.npz``, or a
 port checkpoint directory), an ncnn pair or an ``.onnx``.
 """
@@ -71,7 +72,7 @@ def cmd_export(args) -> int:
 
     if args.calib_data or args.qat_steps > 0:
         print("--calib-data and --qat-steps (int8 artifacts with activation scales) are not "
-              "ported yet (ROADMAP: 'Quantisation')", file=sys.stderr)
+              "ported yet (ROADMAP: 'Quantisation, part 2')", file=sys.stderr)
         return 2
     cfg = get_config(args)
     check_arch_config(cfg, args.arch)

@@ -1,8 +1,10 @@
 """`serve` (HTTP server with dynamic batching) and `video` commands.
 
-The fp subset of ``python -m yolofastest_tpu serve|video`` plus
-``--device``; ``--backend`` int8 and native exit 2 (ROADMAP:
-'Quantisation', 'Native engine').
+The flags of ``python -m yolofastest_tpu serve|video`` plus ``--device``,
+``--int8-zoo`` and ``--keep-fp``: ``--backend fp|jax|int8|int8-fused`` (an
+int8 backend calibrates on the first 8 images of ``--calib-data`` unless
+the cache or ``--int8-zoo`` gives its scales); the native backends exit 2
+(ROADMAP: 'Native engine').
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ def add_serve_parsers(sub) -> None:
 def build_server(args):
     """The DetectionServer of the `serve` arguments (not started), or None
     after a printed message."""
-    built = build_detector(args)
+    built = build_detector(args, calib_data=args.calib_data)
     if built is None:
         return None
     cfg, detector = built
@@ -60,7 +62,7 @@ def build_server(args):
                              cfg.io.input_hw, max_batch=args.max_batch,
                              window_ms=args.window_ms)
     return DetectionServer(batcher, cfg, host=args.host, port=args.port,
-                           arch=args.arch, backend="fp")
+                           arch=args.arch, backend=detector.backend)
 
 
 def cmd_serve(args) -> int:
@@ -87,7 +89,7 @@ def cmd_video(args) -> int:
 
     os.makedirs(args.out, exist_ok=True)
     logger = config_logger(args.out, "video_info.log")
-    built = build_detector(args, logger)
+    built = build_detector(args, logger, calib_data=args.calib_data)
     if built is None:
         return 2
     cfg, detector = built

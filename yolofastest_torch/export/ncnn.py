@@ -23,7 +23,7 @@ The layer table comes from the topology walk over an executor whose
 calls in its order, so the files are byte for byte the JAX writer's.
 :func:`import_ncnn` reads such a pair back, the reference's own shipped
 ones included.  The int8 calibration table writer is not ported yet
-(ROADMAP: 'Quantisation').  An independent consumer, ``tools/ncnn_check.py``,
+(ROADMAP: 'Quantisation, part 2').  An independent consumer, ``tools/ncnn_check.py``,
 parses and executes the files with numpy alone.
 """
 

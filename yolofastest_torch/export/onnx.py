@@ -19,7 +19,7 @@ Standard opset 13, NCHW: Conv / Relu / Add / Concat / ConvTranspose.  Input
 symbolic.  :func:`export_onnx_detect` adds the decode and NMS tail.
 :func:`import_onnx` reads both our BN-folded exports and the reference's
 torch exports, which keep their BatchNormalization nodes.  The int8 QDQ
-writer is not ported yet (ROADMAP: 'Quantisation').
+writer is not ported yet (ROADMAP: 'Quantisation, part 2').
 
 An independent consumer, ``tools/onnx_check.py``, parses and executes the
 files with numpy alone.

@@ -1,10 +1,12 @@
 """End-to-end detection pipeline on the card: preprocess -> folded graph ->
 decode -> NMS.
 
-The port of ``yolofastest_tpu/inference/detector.py`` with the fp backend:
+The port of ``yolofastest_tpu/inference/detector.py``: the fp backend in
 the deployed mode (``fold_bn=True``, the BN-folded graph over the chain
-kernels) and the training model's eval forward (``fold_bn=False``), both
-architectures and flip TTA.  Everything after image load runs on the
+kernels) and as the training model's eval forward (``fold_bn=False``), the
+int8 and int8-fused backends (:mod:`yolofastest_torch.quant`: calibrated,
+from a cache, or from a shipped int8 artifact, optionally with keep-fp
+layers), both architectures and flip TTA.  Everything after image load runs on the
 detector's device; the only host work is cv2 file IO.  On the card no step of the detect path reads
 back to the host, so :meth:`Detector.run_packed` returns before the card is
 done.
@@ -19,9 +21,11 @@ done.
 
 from __future__ import annotations
 
+import functools
+import json
 import os
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +36,8 @@ from yolofastest_torch.models import (fold_batchnorm, folded_apply, folded_apply
 from yolofastest_torch.models.yolo_fastest import build_model
 from yolofastest_torch.ops import (batched_nms, decode_heads, preprocess_device,
                                    unpack_detections)
+from yolofastest_torch.quant import (QuantParams, calibrate, load_int8_zoo, ptq,
+                                     quantize_weights, sensitivity)
 from yolofastest_torch.utils.device import exact_fp32, resolve_device
 from yolofastest_torch.utils.visualize import CLASS_COLORS, plot_one_box
 
@@ -72,21 +78,54 @@ class Detector:
         backend: str = "fp",
         arch: str = "fastest",
         tta: bool = False,
+        calibration=None,
+        calibration_cache: Optional[str] = None,
+        calib_method: str = "amax",
+        calib_percentile: float = 99.99,
+        keep_fp: Sequence[str] = (),
+        int8_artifact: Optional[str] = None,
     ):
-        if backend != "fp":
-            raise NotImplementedError(
-                f"backend {backend!r} is not ported yet (ROADMAP: 'Quantisation')")
+        int8 = backend in ("int8", "int8-fused")
+        if int8_artifact is not None:
+            if not int8:
+                raise ValueError("int8_artifact needs an int8 backend")
+            if keep_fp:
+                raise ValueError("int8_artifact and keep_fp are exclusive "
+                                 "(the artifact IS the deployment config)")
+            zoo8 = load_int8_zoo(int8_artifact)
+            if zoo8 is None:
+                raise ValueError(f"int8 artifact not found: {int8_artifact}")
+        if backend not in ("fp", "int8", "int8-fused"):
+            raise ValueError(f"unknown backend {backend!r}")
+        if keep_fp and not int8:
+            raise ValueError("keep_fp (mixed precision) applies to the int8 backends "
+                             "(int8 / int8-fused) only")
         if arch not in ("fastest", "lite"):
             raise ValueError(f"unknown arch {arch!r}")
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, not {compute_dtype}")
         self.config = config
+        self.backend = backend
         self.tta = tta
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.logger = logger
         self.model = None
-        if fold_bn:
+        if int8:
+            self.params = None
+            if int8_artifact is not None:
+                folded, scales, keep_fp = zoo8  # the artifact's own keep-fp set
+            else:
+                folded = fold_batchnorm(variables)
+                scales = self._load_or_calibrate(
+                    folded, calibration, calibration_cache,
+                    functools.partial(calibrate, arch=arch, method=calib_method,
+                                      percentile=calib_percentile, device=self.device))
+            self.act_scales = scales
+            self.keep_fp = tuple(keep_fp)
+            self._apply = _int8_apply(folded, scales, self.keep_fp, backend == "int8-fused",
+                                      arch, self.device)
+        elif fold_bn:
             self.params = torch_params_from_folded(fold_batchnorm(variables), self.device,
                                                    compute_dtype)
             self._apply = folded_apply if arch == "fastest" else folded_apply_lite
@@ -97,6 +136,23 @@ class Detector:
             self.params = None
             self._apply = self._model_apply
         self._warm: set = set()
+
+    @staticmethod
+    def _load_or_calibrate(folded, calibration, cache_path, calibrate_fn):
+        """The int8 scales: from ``cache_path`` when it exists, else
+        calibrated on ``calibration`` and written there (JAX's JSON)."""
+        if cache_path and os.path.exists(cache_path):
+            with open(cache_path) as f:
+                return {k: float(v) for k, v in json.load(f).items()}
+        if calibration is None:
+            raise ValueError("int8 backends need calibration= batches (or an existing "
+                             "calibration_cache file)")
+        batches = calibration if isinstance(calibration, (list, tuple)) else [calibration]
+        scales = calibrate_fn(folded, batches)
+        if cache_path:
+            with open(cache_path, "w") as f:
+                json.dump(scales, f, indent=1)
+        return scales
 
     # ------------------------------------------------------------------ core
     def _model_apply(self, _params, x, _dtype):
@@ -259,6 +315,23 @@ class Detector:
         avg = totals[0] / max(len(names), 1)
         log("detect avg_time: %.2fms" % avg)
         return avg
+
+
+def _int8_apply(folded, scales, keep_fp, fused: bool, arch: str, device):
+    """The int8 graph as the Detector's ``_apply(params, x, dtype)``: the
+    int8 layers on ``device`` once, ``keep_fp`` layers (if any) as fp."""
+    qp = QuantParams(quantize_weights(folded), device)
+    if keep_fp:
+        unknown = set(keep_fp) - set(qp)
+        if unknown:
+            raise ValueError(f"unknown keep_fp layer(s): {sorted(unknown)}")
+        fp = sensitivity.fp_params(folded, keep_fp, device)
+        mixed = (sensitivity.quantized_apply_fused_mixed if fused
+                 else sensitivity.quantized_apply_mixed)
+        return lambda _params, x, _dtype: mixed(qp, fp, scales, x, fp_layers=keep_fp,
+                                                arch=arch)
+    apply_q = ptq.quantized_apply_fused if fused else ptq.quantized_apply
+    return lambda _params, x, _dtype: apply_q(qp, scales, x, arch=arch)
 
 
 def _merge_tta(boxes, conf, cls_score, cls_idx, valid, w: float):

@@ -36,7 +36,10 @@ from yolofastest_torch.utils.device import resolve_device
 
 def torch_params_from_folded(folded: Dict[str, Dict[str, np.ndarray]],
                              device: Optional[Any] = None,
-                             dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+                             dtype: torch.dtype = torch.float32,
+                             chains: bool = True) -> Dict[str, Any]:
+    """``chains=False`` leaves ``params["chains"]`` empty, for a subset of
+    the layers or an executor that runs its chains layer by layer."""
     dev = resolve_device(device)
 
     def tensor(a, dt):
@@ -52,12 +55,12 @@ def torch_params_from_folded(folded: Dict[str, Dict[str, np.ndarray]],
                 memory_format=torch.channels_last)
         layers[name] = {"weight": weight, "bias": tensor(p["bias"], dtype)}
 
-    chains = {}
-    for names in RES_CHAINS:
+    stacks = {}
+    for names in RES_CHAINS if chains else ():
         stacked = chain_weights_from_folded(folded, names)
-        chains[names] = tuple(tensor(a, dtype if i % 2 == 0 else torch.float32)
+        stacks[names] = tuple(tensor(a, dtype if i % 2 == 0 else torch.float32)
                               for i, a in enumerate(stacked))
-    return {"layers": layers, "chains": chains}
+    return {"layers": layers, "chains": stacks}
 
 
 # flax leaf name -> module attribute name, under a "bn" submodule
