@@ -31,8 +31,11 @@ card, ``detect`` on a checkpoint directory), int8 (the shipped int8
 artifacts through both int8 backends: golden recall, rows and heads against
 the CPU port, every layer's integer accumulators against exact int64 ones,
 calibration on the card against the CPU with a cache written and read,
-launches, and both backends timed beside fp32); then the ``{"kernels":
-[...]}`` summary, and last ``{"ok": true, "device": {...}}``.  Every path
+launches, and both backends timed beside fp32), quant2 (the sensitivity
+sweep, timed, and against the CPU port's, QAT steps card against CPU in float64 and
+fp32 with the teacher's chain launches and the steps/s, and ``export
+--calib-data --qat-steps --device cuda``'s int8 files); then the
+``{"kernels": [...]}`` summary, and last ``{"ok": true, "device": {...}}``.  Every path
 resets the kernel launch counts before it runs and checks them after.
 
 Any failed check raises, so the script exits non-zero and prints no ok line;
@@ -862,6 +865,206 @@ def int8_path(card, counted) -> dict:
     return counts
 
 
+def quant2_path(card, counted) -> dict:
+    """The quant2 phase on the card (256x320 zoo, the golden frames): the
+    sensitivity sweep over the 20 frames, and against the CPU port's on the
+    first 8 with the same scales;
+    QAT, its float64 steps each from the CPU's state (1e-9 a leaf), fp32
+    runs card and CPU, the teacher's chain launches and the steps/s; and
+    ``export --calib-data <golden frames> --qat-steps 4 --device cuda``.
+    One JSON line; returns the launch counts of each run."""
+    import contextlib
+    import io
+    import tempfile
+
+    import cv2
+    import torch
+
+    from torch_timing import device_busy
+    from yolofastest_torch.cli import main as cli_main
+    from yolofastest_torch.cli._common import load_calibration
+    from yolofastest_torch.configs import get_config
+    from yolofastest_torch.export import load_native_weights
+    from yolofastest_torch.models import fold_batchnorm, load_variables
+    from yolofastest_torch.quant import (calibrate, layer_sensitivity, qat_finetune,
+                                         quantize_weights)
+    from yolofastest_torch.quant.qat import QatRun
+
+    t0 = time.perf_counter()
+    cfg = get_config("256x320")
+    zoo_file = os.path.join(WEIGHTS, "yolofastest_256x320.npz")
+    folded = fold_batchnorm(load_variables(zoo_file))
+    fx = np.load(os.path.join(FIXTURES, "golden_256x320.npz"))
+    x = (fx["pre_imgs"].astype(np.float32)[..., None] - 128.0) / 255.0
+    counts = {}
+
+    # -- the sweep: every layer int8 alone against the fp graph, over the 20
+    # frames on the card (timed); card vs CPU on the first 8 with the same
+    # scales (the CPU's sweep takes 25-90 s of a host for 20), to the
+    # per-layer tolerance of the mixed int8 graph (tests/test_torch_quant.py)
+    mean_tol, max_tol = 1e-3, 0.5
+    scales = calibrate(folded, [x], device="cpu")
+    c0 = time.perf_counter()
+    table20, counts["sweep"] = counted(lambda: layer_sensitivity(folded, [x], act_scales=scales,
+                                                                 device="cuda"))
+    sweep_s = time.perf_counter() - c0
+    sweep_busy_ms, sweep_busy_share = device_busy(
+        lambda: layer_sensitivity(folded, [x], act_scales=scales, device="cuda"), 1)
+    x8 = x[:8]
+    rows = layer_sensitivity(folded, [x8], act_scales=scales, device="cuda")
+    c0 = time.perf_counter()
+    cpu_rows = layer_sensitivity(folded, [x8], act_scales=scales, device="cpu")
+    cpu_sweep_s = time.perf_counter() - c0
+    cpu_by = {r["layer"]: r for r in cpu_rows}
+    worst_mean = max(abs(r["mean_abs"] - cpu_by[r["layer"]]["mean_abs"]) for r in rows)
+    worst_max = max(abs(r["max_abs"] - cpu_by[r["layer"]]["max_abs"]) for r in rows)
+    gaps = [cpu_rows[i]["mean_abs"] - cpu_rows[i + 1]["mean_abs"] for i in range(5)]
+    keep, cpu_keep = ([r["layer"] for r in rr[:5]] for rr in (rows, cpu_rows))
+    sweep = {"layers": len(table20), "cpu_layers": len(cpu_rows),
+             "same_layers": sorted(cpu_by) == sorted(r["layer"] for r in rows) == sorted(
+                 r["layer"] for r in table20) == sorted(quantize_weights(folded)),
+             "frames": int(x.shape[0]), "seconds": sweep_s, "compared_frames": int(x8.shape[0]),
+             "cpu_seconds_compared_frames": cpu_sweep_s,
+             "device_busy_ms": sweep_busy_ms, "device_busy_share": sweep_busy_share,
+             "worst_mean_abs_diff": worst_mean, "worst_max_abs_diff": worst_max,
+             "keep_fp_top5": keep, "cpu_keep_fp_top5": cpu_keep,
+             "top5_separated": min(gaps) > 2 * mean_tol, "launches": counts["sweep"],
+             "worst5_20_frames": table20[:5]}
+
+    # -- QAT, float64: each step on the card from the CPU's state
+    xq = x[:2]
+    runs = {dev: QatRun(folded, scales, [xq], arch="fastest", targets=None, anchors=None,
+                        input_hw=None, num_cls=3, lr=1e-4, conf_weight=1.0, device=dev,
+                        dtype=torch.float64) for dev in ("cpu", "cuda")}
+    theta = runs["cpu"].theta0
+    state = (theta, torch.zeros_like(theta), torch.zeros_like(theta),
+             torch.zeros((), dtype=torch.int32))
+    worst64, losses64 = 0.0, []
+    for _ in range(3):
+        cpu_next = runs["cpu"].step(*state, 0)
+        card_next = runs["cuda"].step(*(t.cuda() for t in state), 0)
+        for card_t, cpu_t in zip(card_next[:3], cpu_next[:3]):
+            card_t = card_t.cpu()
+            for a, b in runs["cpu"].layout.spans.values():
+                worst64 = max(worst64, rel_l2(card_t[a:b], cpu_t[a:b]))
+        losses64.append((float(card_next[4]), float(cpu_next[4])))
+        state = cpu_next[:4]
+    loss64_rel = max(abs(a - b) / abs(b) for a, b in losses64)
+
+    # -- QAT, fp32: whole runs on the card and the CPU; the distillation
+    # teacher (one batch) is the fp forward with its six chains the kernel
+    (card_tuned, card_hist), counts["qat"] = counted(lambda: qat_finetune(
+        folded, scales, [xq], steps=4, device="cuda"))
+    cpu_tuned, cpu_hist = qat_finetune(folded, scales, [xq], steps=4, device="cpu")
+    hist_rel = [abs(a - b) / abs(b) for a, b in zip(card_hist, cpu_hist)]
+    batches = [x[:8], x[8:16]]
+    qat_finetune(folded, scales, batches, steps=2, device="cuda")  # warm
+    torch.cuda.synchronize()
+    c0 = time.perf_counter()
+    _, counts["qat_timed"] = counted(lambda: qat_finetune(folded, scales, batches, steps=20,
+                                                          device="cuda"))
+    qat_s = time.perf_counter() - c0
+    run8 = QatRun(folded, scales, batches, arch="fastest", targets=None, anchors=None,
+                  input_hw=None, num_cls=3, lr=1e-4, conf_weight=1.0, device="cuda",
+                  dtype=torch.float32)
+    zeros8 = torch.zeros_like(run8.theta0)
+    step_busy_ms, step_busy_share = device_busy(
+        lambda: run8.step(run8.theta0, zeros8, zeros8, torch.zeros((), dtype=torch.int32,
+                                                                   device="cuda"), 0), 3)
+    qat = {"float64_steps": 3, "float64_worst_leaf_rel_l2": worst64,
+           "float64_loss_rel": loss64_rel, "float64_tolerance": "1e-9 relative L2 a leaf "
+           "(params, Adam moments), each card step from the CPU's state",
+           "fp32_history_card": card_hist, "fp32_history_cpu": cpu_hist,
+           "fp32_history_rel": hist_rel, "launches": counts["qat"],
+           "timed": {"batch": 8, "steps": 20, "seconds": qat_s, "steps_per_s": 20 / qat_s,
+                     "launches": counts["qat_timed"], "step_device_busy_ms": step_busy_ms,
+                     "step_device_busy_share": step_busy_share}}
+
+    # -- export --calib-data <golden frames> --qat-steps 4 --device cuda
+    expect = sorted(["model.yfb", "model_int8.yfb", "model.onnx", "detect.onnx", "model.param",
+                     "model.bin", "model.prototxt", "model.caffemodel", "model_int8.onnx",
+                     "model.table", "model.pt"])
+    with tempfile.TemporaryDirectory(prefix="yf_quant2_") as tmp:
+        calib, out = os.path.join(tmp, "calib"), os.path.join(tmp, "out")
+        os.makedirs(calib)
+        for i, frame in enumerate(make_frames(fx["pre_imgs"][:8])):
+            cv2.imwrite(os.path.join(calib, f"g{i}.jpg"), frame)
+        printed = io.StringIO()
+        c0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc, counts["export"] = counted(lambda: cli_main(
+                ["export", "--weights", zoo_file, "--out", out, "--calib-data", calib,
+                 "--qat-steps", "4", "--device", "cuda"]))
+        export_s = time.perf_counter() - c0
+        files = sorted(os.listdir(out))
+        own = calibrate(folded, [load_calibration(calib, cfg.io)], device="cuda")
+        stored = load_native_weights(os.path.join(out, "model_int8.yfb"))
+        scale_keys = sorted(k for k, v in stored.items() if "act_scale" in v)
+        scales_equal = scale_keys == sorted(k for k in own if k in folded) and all(
+            stored[k]["act_scale"][0] == np.float32(own[k]) for k in scale_keys)
+        q = quantize_weights(folded)
+        table_ok, table_layers = True, 0
+        with open(os.path.join(out, "model.table")) as f:
+            for line in f.read().splitlines():
+                name, *vals = line.split()
+                if name.endswith("_param_0"):
+                    want = 1.0 / np.asarray(q[name[:-len("_param_0")]]["w_scale"], np.float64)
+                    table_ok &= [float(v) for v in vals] == want.tolist()
+                    table_layers += 1
+                else:
+                    table_ok &= [float(v) for v in vals] == [1.0 / float(own[name])]
+        xn = np.ascontiguousarray(x[:2].transpose(0, 3, 1, 2))
+        np.save(os.path.join(tmp, "x.npy"), xn)
+        onnx = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "onnx_check.py"),
+                               os.path.join(out, "model_int8.onnx"), os.path.join(tmp, "x.npy"),
+                               os.path.join(tmp, "y.npz")], capture_output=True, text=True,
+                              timeout=600)
+        heads_ok = False
+        if onnx.returncode == 0:
+            with np.load(os.path.join(tmp, "y.npz")) as y:
+                heads_ok = (sorted(y.files) == ["head_large", "head_small"]
+                            and y["head_large"].shape == (2, 24, 16, 20)
+                            and all(np.isfinite(y[k]).all() for k in y.files))
+    lines = printed.getvalue().splitlines()
+    export = {"rc": rc, "files": files, "expected": expect, "seconds": export_s,
+              "qat_line": lines[0] if lines else "", "not_written_line": lines[-1] if lines
+              else "", "scales_equal_own_calibration": scales_equal,
+              "scaled_layers": len(scale_keys), "table_multipliers_equal": bool(table_ok),
+              "table_layers": table_layers,
+              "onnx_check": {"rc": onnx.returncode, "out": onnx.stdout.strip()[-200:],
+                             "heads_ok": heads_ok},
+              "launches": counts["export"]}
+    emit("quant2", card=card, res="256x320", sweep=sweep,
+         sweep_tolerance=f"per row: mean_abs within {mean_tol}, max_abs within {max_tol} "
+                         "(the per-layer mixed graph's tolerance); the top-5 --keep-fp line equal "
+                         f"where the CPU's first six rows are {2 * mean_tol} apart",
+         qat=qat, qat_fp32_tolerance="the first loss within 1e-4 relative; each later one "
+                                     "within 5e-2 (STE steps move weights by lr on the sign "
+                                     "of fp32 noise)",
+         export=export, seconds=time.perf_counter() - t0)
+    check(sweep["same_layers"] and worst_mean <= mean_tol and worst_max <= max_tol,
+          f"quant2 sweep off the CPU's: {sweep}")
+    check(not sweep["top5_separated"] or keep == cpu_keep, f"quant2 keep-fp line: {sweep}")
+    check(counts["sweep"]["res_chain_rows"] == 0 and counts["sweep"]["res_chain_cf"] == 0,
+          f"quant2 sweep launched the chain kernel: {counts['sweep']}")
+    check(worst64 <= 1e-9 and loss64_rel <= 1e-9, f"quant2 float64 QAT steps: {qat}")
+    check(hist_rel[0] <= 1e-4 and max(hist_rel) <= 5e-2 and np.all(np.isfinite(card_hist)),
+          f"quant2 fp32 QAT history: {qat}")
+    for key, batches_n in (("qat", 1), ("qat_timed", 2)):
+        c = counts[key]
+        check(c["res_chain_rows"] == 6 * batches_n and c["res_chain_cf"] == 0 and c["nms"] == 0,
+              f"quant2 {key} launches {c}: want 6 K2 a teacher batch, none in the student")
+    check(rc == 0 and files == expect, f"quant2 export: rc {rc}, files {files}")
+    check("forward_int8.stablehlo" in export["not_written_line"]
+          and export["qat_line"].startswith("QAT distillation: loss"), f"quant2 export: {export}")
+    check(scales_equal and table_ok and table_layers > 0, f"quant2 export scales: {export}")
+    check(onnx.returncode == 0 and "ONNX_CONSUMED_OK" in onnx.stdout and heads_ok,
+          f"quant2 model_int8.onnx: {export['onnx_check']} {onnx.stderr[-400:]}")
+    check(counts["export"]["res_chain_rows"] == 6 and counts["export"]["nms"] == 0,
+          f"quant2 export launches {counts['export']}: want the QAT teacher's 6")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1579,6 +1782,9 @@ def main() -> int:
 
     # ------------------------------------------------------- int8 path
     int8_path(card, counted)
+
+    # --------------------------------------- quantisation tools (sweep, QAT)
+    quant2_path(card, counted)
 
     # ------------------------------------------------------- kernels summary
     f32 = sums["float32/B64"]

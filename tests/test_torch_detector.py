@@ -177,7 +177,8 @@ IMPORTS_CODE = (
     "import yolofastest_torch.utils.metrics\n"
     "import yolofastest_torch.export, yolofastest_torch.quant, yolofastest_torch.cli.export\n"
     "import yolofastest_torch.quant.ptq, yolofastest_torch.quant.sensitivity\n"
-    "import yolofastest_torch.quant.zoo\n"
+    "import yolofastest_torch.quant.zoo, yolofastest_torch.quant.qat\n"
+    "import yolofastest_torch.models.summary, yolofastest_torch.cli.quantize\n"
     "import yolofastest_torch.models.torch_io, yolofastest_torch.export.torchscript\n"
     "bad = [m for m in sys.modules if 'flax' in m or 'yolofastest_tpu' in m]\n"
     "print(bad)\n"
@@ -201,7 +202,8 @@ def test_sources_import_no_jax():
     assert len(paths) > 15
     for module in ("export/onnx.py", "export/ncnn.py", "export/caffe.py", "export/native.py",
                    "export/torchscript.py", "quant/ptq.py", "quant/sensitivity.py",
-                   "quant/zoo.py", "models/torch_io.py", "cli/export.py"):
+                   "quant/zoo.py", "quant/qat.py", "models/torch_io.py",
+                   "models/summary.py", "cli/export.py", "cli/quantize.py"):
         assert os.path.join(ROOT, "yolofastest_torch", module) in paths, module
     for p in paths:
         with open(p) as f:

@@ -373,15 +373,42 @@ def test_cli_export_writes_jax_files(exports, cli_export):
 
 
 def test_cli_export_refusals(exports, tmp_path, capsys):
-    """--calib-data and --qat-steps exit 2 naming the ROADMAP item; a lite
-    ONNX under --arch fastest stops as the JAX command does."""
+    """The int8 branch of ``export`` (the lite zoo at a 64x96 config): a
+    missing --calib-data directory and --qat-steps without calibration each
+    print their line and still write the fp files, without the int8 extras;
+    --calib-data with images writes them and names forward_int8.stablehlo
+    among the JAX programs; a lite ONNX under --arch fastest stops as the JAX
+    command does."""
+    import dataclasses
+
     from yolofastest_torch.cli import main
 
-    base = ["export", "--weights", zoo_path("256x320"), "--out", str(tmp_path / "x")]
-    assert main(base + ["--calib-data", str(tmp_path)]) == 2
-    assert main(base + ["--qat-steps", "3"]) == 2
-    assert "ROADMAP: 'Quantisation, part 2'" in capsys.readouterr().err
-    assert not os.path.exists(tmp_path / "x")
+    cfg = get_config("lite-256x320")
+    cfgj = tmp_path / "tiny.json"
+    cfgj.write_text(dataclasses.replace(cfg, io=dataclasses.replace(
+        cfg.io, input_shape=(64, 96, 1))).to_json())
+    data = tmp_path / "data"
+    data.mkdir()
+    cv2 = pytest.importorskip("cv2")
+    cv2.imwrite(str(data / "im0.jpg"), np.random.default_rng(0).integers(0, 255, (64, 96, 3),
+                                                                         np.uint8))
+    base = ["export", "--config-json", str(cfgj), "--arch", "lite", "--weights",
+            zoo_path("lite_256x320"), "--device", "cpu"]
+    fp_files = ["detect.onnx", "model.bin", "model.caffemodel", "model.onnx", "model.param",
+                "model.prototxt", "model.pt", "model.yfb", "model_int8.yfb"]
+    missing = str(tmp_path / "missing")
+    assert main(base + ["--out", str(tmp_path / "a"), "--calib-data", missing,
+                        "--qat-steps", "3"]) == 0
+    printed = capsys.readouterr().out.splitlines()
+    assert printed[:2] == [f"no calibration images (.jpg/.png/.bmp) in {missing}",
+                           "--qat-steps needs --calib-data (skipping QAT)"]
+    assert sorted(os.listdir(tmp_path / "a")) == fp_files
+    assert "and detect.mlir are JAX programs" in printed[-1]
+    assert main(base + ["--out", str(tmp_path / "b"), "--calib-data", str(data)]) == 0
+    printed = capsys.readouterr().out.splitlines()
+    assert sorted(os.listdir(tmp_path / "b")) == sorted(fp_files + ["model.table",
+                                                                    "model_int8.onnx"])
+    assert "forward_int8.stablehlo are JAX programs" in printed[-1]
     with pytest.raises(SystemExit, match="single-head"):
         main(["export", "--weights", str(exports["lite"]["root"] / "port/model.onnx"), "--out",
               str(tmp_path / "o")])

@@ -1,15 +1,20 @@
 """`export` and `convert` commands: deployable artifacts out, weights in.
 
-The port of ``yolofastest_tpu/cli/export.py`` for the fp artifacts, with the
-JAX command's flags and file names.  Both commands run on the host: the
-writers and readers are numpy, and the TorchScript trace runs on the CPU.
-``export`` writes ``model.yfb``, ``model_int8.yfb`` (weights only),
+The port of ``yolofastest_tpu/cli/export.py``, with the JAX command's flags,
+file names and output.  ``export`` writes ``model.yfb``, ``model_int8.yfb``,
 ``model.onnx``, ``detect.onnx``, ``model.param`` + ``model.bin``,
-``model.prototxt`` + ``model.caffemodel`` and ``model.pt``.  The JAX
-command's ``forward``/``detect`` ``.stablehlo`` and ``.mlir`` files are JAX
-programs and are not written; ``--calib-data`` and ``--qat-steps`` (the
-int8 artifacts with activation scales) exit 2 until the ROADMAP item
-'Quantisation, part 2' ports them.
+``model.prototxt`` + ``model.caffemodel`` and ``model.pt``.  With
+``--calib-data`` it calibrates on the first 8 images (a missing or empty
+directory skips the int8 extras and still writes the fp files), so
+``model_int8.yfb`` carries the activation scales, and it writes
+``model_int8.onnx`` (QDQ) and ``model.table`` (ncnn's int8 calibration
+table, from the fp weights that ``model.param``/``model.bin`` ship);
+``--qat-steps N`` first fine-tunes the int8 artifacts' weights by
+quantisation-aware distillation on those images.  The calibration and QAT
+run on ``--device`` (default cuda); the writers are numpy and the
+TorchScript trace runs on the CPU.  The JAX command's ``forward``/``detect``
+``.stablehlo`` and ``.mlir`` files, and ``forward_int8.stablehlo``, are JAX
+programs and are not written.
 ``convert`` writes a zoo-layout ``.npz`` from a ``.pth`` (or ``.npz``, or a
 port checkpoint directory), an ncnn pair or an ``.onnx``.
 """
@@ -19,15 +24,17 @@ from __future__ import annotations
 import os
 import sys
 
-from yolofastest_torch.cli._common import (UnportedWeights, add_config_args, check_arch_config,
-                                           get_config, load_weights)
+from yolofastest_torch.cli._common import (UnportedWeights, add_config_args, calib_kwargs,
+                                           check_arch_config, get_config, load_calibration,
+                                           load_weights)
 
 _IDENTITY_BN_NOTE = ("note: batch norms are identity-lifted from the folded artifact; "
                      "fine-tuning will re-estimate running stats")
 
 
 def add_export_parsers(sub) -> None:
-    x = sub.add_parser("export", help="export ONNX + ncnn + Caffe + TorchScript + native .yfb")
+    x = sub.add_parser("export", help="export ONNX + ncnn + Caffe + TorchScript + native .yfb "
+                                           "(+ the int8 files with --calib-data)")
     add_config_args(x)
     x.add_argument("--weights", required=True,
                    help=".npz zoo file, reference .pth, .onnx or a port checkpoint directory")
@@ -37,16 +44,21 @@ def add_export_parsers(sub) -> None:
                    help="model architecture; every artifact is emitted for both (lite = "
                         "single-head topology)")
     x.add_argument("--calib-data", default=None,
-                   help="calibration images for the int8 artifacts with activation scales "
-                        "(not ported yet)")
+                   help="directory of calibration images; when given, the int8 artifacts "
+                        "carry activation scales, and model_int8.onnx (QDQ) and model.table "
+                        "(ncnn int8 calibration) are written too")
     x.add_argument("--qat-steps", type=int, default=0,
-                   help="quantisation-aware distillation steps (not ported yet)")
-    x.add_argument("--qat-lr", type=float, default=1e-4, help="learning rate for --qat-steps")
+                   help="quantisation-aware distillation steps on the calibration images "
+                        "before emitting the int8 artifacts (needs --calib-data; the fp "
+                        "artifacts keep the original weights)")
+    x.add_argument("--qat-lr", type=float, default=1e-4, help="Adam learning rate for --qat-steps")
     x.add_argument("--calib-method", default="amax",
                    choices=["amax", "mse", "percentile", "entropy"],
                    help="int8 activation-scale algorithm (with --calib-data)")
     x.add_argument("--calib-percentile", type=float, default=99.99,
                    help="clip percentile for --calib-method percentile")
+    x.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the calibration and QAT run (the writers run on the host)")
     x.set_defaults(fn=cmd_export)
 
     c = sub.add_parser("convert",
@@ -64,16 +76,12 @@ def add_export_parsers(sub) -> None:
 
 
 def cmd_export(args) -> int:
-    from yolofastest_torch.export import (export_caffe, export_ncnn, export_onnx,
-                                          export_onnx_detect, export_torchscript,
-                                          save_native_weights)
+    from yolofastest_torch.export import (export_caffe, export_ncnn, export_ncnn_table,
+                                          export_onnx, export_onnx_detect, export_onnx_qdq,
+                                          export_torchscript, save_native_weights)
     from yolofastest_torch.models import fold_batchnorm
-    from yolofastest_torch.quant import quantize_weights
+    from yolofastest_torch.quant import calibrate, qat_finetune, quantize_weights
 
-    if args.calib_data or args.qat_steps > 0:
-        print("--calib-data and --qat-steps (int8 artifacts with activation scales) are not "
-              "ported yet (ROADMAP: 'Quantisation, part 2')", file=sys.stderr)
-        return 2
     cfg = get_config(args)
     check_arch_config(cfg, args.arch)
     try:
@@ -87,9 +95,36 @@ def cmd_export(args) -> int:
     def out(name):
         return os.path.join(args.out, name)
 
+    cal = act_scales = None
+    if args.calib_data:
+        # a missing or empty directory skips the int8 extras, not the fp files
+        # (the JAX command's os.listdir raises for a missing one)
+        if os.path.isdir(args.calib_data):
+            cal = load_calibration(args.calib_data, cfg.io)
+        else:
+            print(f"no calibration images (.jpg/.png/.bmp) in {args.calib_data}")
+        if cal is not None:
+            act_scales = calibrate(folded, [cal], arch=args.arch, device=args.device,
+                                   **calib_kwargs(args))
+    # the int8 artifacts may come from QAT-refined weights; the fp ones
+    # always ship the original checkpoint
+    int8_src = folded
+    if args.qat_steps > 0:
+        if act_scales is None:
+            print("--qat-steps needs --calib-data (skipping QAT)")
+        else:
+            int8_src, hist = qat_finetune(folded, act_scales, [cal], arch=args.arch,
+                                          steps=args.qat_steps, lr=args.qat_lr,
+                                          device=args.device)
+            # the lowest-loss iterate ships, so min(hist) is the exported point
+            print("QAT distillation: loss %.3e -> %.3e (best of %d steps)"
+                  % (hist[0], min(hist), len(hist)))
+
     save_native_weights(folded, out("model.yfb"), io_config=cfg.io)
     print("wrote", out("model.yfb"))
-    save_native_weights(quantize_weights(folded), out("model_int8.yfb"), io_config=cfg.io)
+    # with --calib-data the int8 .yfb carries activation scales too
+    qparams = quantize_weights(int8_src)
+    save_native_weights(qparams, out("model_int8.yfb"), act_scales=act_scales, io_config=cfg.io)
     print("wrote", out("model_int8.yfb"))
     graph_arch = "yolofastest" if args.arch == "fastest" else "yolofastest-lite"
     export_onnx(folded, cfg.io.input_hw, out("model.onnx"), arch=graph_arch)
@@ -101,11 +136,26 @@ def cmd_export(args) -> int:
     export_caffe(folded, cfg.io.input_hw, out("model.prototxt"), out("model.caffemodel"),
                  arch=graph_arch)
     print("wrote", out("model.prototxt"), "+", out("model.caffemodel"))
+    if act_scales is not None:
+        export_onnx_qdq(qparams, act_scales, cfg.io.input_hw, out("model_int8.onnx"),
+                        arch=graph_arch)
+        print("wrote", out("model_int8.onnx"))
+        # ncnn2int8 quantises the fp weights of model.param/model.bin with
+        # this table, so it is made from those weights even after QAT (whose
+        # smaller multipliers would clip them); the QAT refinement ships in
+        # model_int8.yfb and model_int8.onnx
+        table_qparams = qparams if int8_src is folded else quantize_weights(folded)
+        export_ncnn_table(table_qparams, act_scales, out("model.table"), arch=graph_arch)
+        print("wrote", out("model.table"))
     export_torchscript(folded, cfg.io.input_hw, out("model.pt"), batch=args.batch,
                        arch=graph_arch)
     print("wrote", out("model.pt"))
-    print("not written: forward.stablehlo, forward.mlir, detect.stablehlo and detect.mlir are "
-          "JAX programs (python -m yolofastest_tpu export writes them)")
+    jax_only = "forward.stablehlo, forward.mlir, detect.stablehlo and detect.mlir are"
+    if cal is not None:
+        jax_only = ("forward.stablehlo, forward.mlir, detect.stablehlo, detect.mlir and "
+                    "forward_int8.stablehlo are")
+    print(f"not written: {jax_only} JAX programs (python -m yolofastest_tpu export writes "
+          "them)")
     return 0
 
 

@@ -1,6 +1,6 @@
 """ncnn ``.param`` / ``.bin`` export and import of the folded deployment graph.
 
-The port of ``yolofastest_tpu/export/ncnn.py`` (fp32 artifacts).  ncnn is the
+The port of ``yolofastest_tpu/export/ncnn.py``.  ncnn is the
 reference's embedded runtime: its chain ``.pth -> ONNX -> onnx2ncnn ->
 ncnnoptimize -> .param/.bin`` ends in the artifacts ``Detect_YOLO`` loads
 (``ncnn_deploy/src/YOLO_ncnn.cpp:12-14``).  :func:`export_ncnn` writes that
@@ -22,8 +22,8 @@ The layer table comes from the topology walk over an executor whose
 "tensors" are blob names; the port's chains unroll into the JAX walk's
 calls in its order, so the files are byte for byte the JAX writer's.
 :func:`import_ncnn` reads such a pair back, the reference's own shipped
-ones included.  The int8 calibration table writer is not ported yet
-(ROADMAP: 'Quantisation, part 2').  An independent consumer, ``tools/ncnn_check.py``,
+ones included, and :func:`export_ncnn_table` writes the int8 calibration
+table ncnn's own ``ncnn2int8`` takes.  An independent consumer, ``tools/ncnn_check.py``,
 parses and executes the files with numpy alone.
 """
 
@@ -336,3 +336,33 @@ def export_ncnn(folded: Dict[str, Dict[str, np.ndarray]], input_hw,
     with open(bin_path, "wb") as f:
         for chunk in em.chunks:
             f.write(chunk.tobytes())
+
+
+def export_ncnn_table(qparams: Dict[str, Dict[str, np.ndarray]], act_scales: Dict[str, float],
+                      table_path: str, arch: str = "yolofastest") -> None:
+    """Write the ncnn int8 calibration table for the exported ``.param``
+    (``ncnn2int8 model.param model.bin out.param out.bin model.table``), from
+    the scales the port's quantisation already computed.
+
+    Two lines per quantised layer, the scales as multipliers (``127 /
+    amax``, the inverse of the dequantisation scales), printed with
+    ``%.17g`` so the float64 values round-trip::
+
+        <layer>_param_0 <w_mult_out0> <w_mult_out1> ...
+        <layer> <input_blob_mult>
+
+    Only Convolution and ConvolutionDepthWise layers are listed: ncnn does
+    not int8-quantise Deconvolution.
+    """
+    lines = []
+    for name, kind, _k in _weight_schedule(arch):
+        if kind == "deconv":
+            continue
+        if name not in qparams or name not in act_scales:
+            raise ValueError(f"missing int8 scales for layer {name!r} (qparams from "
+                             "quantize_weights, act_scales from calibrate)")
+        w_mult = 1.0 / np.asarray(qparams[name]["w_scale"], np.float64)
+        lines.append(name + "_param_0 " + " ".join("%.17g" % m for m in w_mult))
+        lines.append("%s %.17g" % (name, 1.0 / float(act_scales[name])))
+    with open(table_path, "w") as f:
+        f.write("\n".join(lines) + "\n")

@@ -1,7 +1,7 @@
 """ONNX export and import of the folded deployment graph, without the onnx
 package.
 
-The port of ``yolofastest_tpu/export/onnx.py`` (fp32 artifacts).  An ONNX
+The port of ``yolofastest_tpu/export/onnx.py``.  An ONNX
 file is a protobuf ``ModelProto``; the writer below serialises the folded
 graph directly with the protobuf wire format (varint tags and
 length-delimited submessages), through the same topology walk as every other
@@ -18,8 +18,8 @@ Standard opset 13, NCHW: Conv / Relu / Add / Concat / ConvTranspose.  Input
 ``head_small`` logit maps (lite: ``head_small`` only); the batch dimension is
 symbolic.  :func:`export_onnx_detect` adds the decode and NMS tail.
 :func:`import_onnx` reads both our BN-folded exports and the reference's
-torch exports, which keep their BatchNormalization nodes.  The int8 QDQ
-writer is not ported yet (ROADMAP: 'Quantisation, part 2').
+torch exports, which keep their BatchNormalization nodes.
+:func:`export_onnx_qdq` writes the int8 graph in QDQ form.
 
 An independent consumer, ``tools/onnx_check.py``, parses and executes the
 files with numpy alone.
@@ -75,6 +75,7 @@ def _packed_ints(field: int, values) -> bytes:
 
 # ------------------------------------------------------------ ONNX messages
 _FLOAT = 1  # TensorProto.DataType.FLOAT
+_INT8 = 3  # TensorProto.DataType.INT8
 _INT64 = 7  # TensorProto.DataType.INT64
 _ATTR_INT, _ATTR_INTS = 2, 7  # AttributeProto.AttributeType
 
@@ -84,6 +85,13 @@ def _tensor(name: str, array: np.ndarray) -> bytes:
     a = np.ascontiguousarray(array, dtype=np.float32)
     return (_packed_ints(1, a.shape) + _i(2, _FLOAT) + _s(8, name)
             + _ld(9, a.tobytes()))  # raw_data is little-endian on all hosts we target
+
+
+def _tensor_i8(name: str, array: np.ndarray) -> bytes:
+    """Int8 TensorProto (quantised weights, zero points)."""
+    a = np.ascontiguousarray(array, dtype=np.int8)
+    return (_packed_ints(1, a.shape) + _i(2, _INT8) + _s(8, name)
+            + _ld(9, a.tobytes()))
 
 
 def _tensor_i64(name: str, array: np.ndarray) -> bytes:
@@ -241,6 +249,78 @@ def _serialize(ex: _OnnxExecutor, arch: str, input_hw, num_out: int,
     with open(path, "wb") as f:
         f.write(model)
     return path
+
+
+# --------------------------------------------------------------- QDQ (int8)
+class _QdqOnnxExecutor(_OnnxExecutor):
+    """QDQ-form int8 graph: every conv/deconv/head input passes through
+    QuantizeLinear -> DequantizeLinear at its calibrated per-tensor scale,
+    and the weights ship as int8 initializers dequantised per output
+    channel: the quantisation :class:`~yolofastest_torch.quant.ptq.
+    Int8Executor` applies (symmetric, zero point 0, round half to even), so a
+    QDQ-aware runtime can fuse the patterns into int8 kernels while a plain
+    one runs the equivalent fake-quant float graph.
+
+    Known spec divergence, as in JAX's writer: ONNX saturates int8 to
+    [-128, 127] where the executors clip to [-127, 127], so a fully
+    saturated negative activation can differ by one step.
+    """
+
+    def __init__(self, qparams: Dict[str, Dict[str, Any]], act_scales: Dict[str, float]):
+        super().__init__(qparams)
+        self.act_scales = act_scales
+
+    def _qdq_in(self, x: str, name: str) -> str:
+        sn, zn = f"{name}.x_scale", f"{name}.x_zp"
+        self.initializers.append(_tensor(sn, np.float32(float(self.act_scales[name]))))
+        # an explicit int8 zero point: it selects the quantised type
+        self.initializers.append(_tensor_i8(zn, np.int8(0)))
+        q, dq = f"{name}.x_q", f"{name}.x_dq"
+        self.nodes.append(_node("QuantizeLinear", [x, sn, zn], [q], q))
+        self.nodes.append(_node("DequantizeLinear", [q, sn, zn], [dq], dq))
+        return dq
+
+    def _weights(self, name: str, depthwise: bool, deconv: bool = False):
+        # the fp writer's layout moves; the deconv's output channel is axis 1
+        # of (Cin, Cout, kh, kw), every other kernel's axis 0
+        kq = np.asarray(self.p[name]["kernel_q"], np.int8).transpose(
+            (2, 3, 0, 1) if deconv else (3, 2, 0, 1))
+        qn, sn, wn, bn = (f"{name}.weight_q", f"{name}.w_scale", f"{name}.weight",
+                          f"{name}.bias")
+        self.initializers.append(_tensor_i8(qn, kq))
+        self.initializers.append(_tensor(sn, np.asarray(self.p[name]["w_scale"], np.float32)))
+        # no zero point: 0 of the input's (int8) type
+        self.nodes.append(_node("DequantizeLinear", [qn, sn], [wn], wn,
+                                [_attr_int("axis", 1 if deconv else 0)]))
+        self.initializers.append(_tensor(bn, np.asarray(self.p[name]["bias"], np.float32)))
+        return wn, bn
+
+    def conv(self, x, name, kernel, stride=1, depthwise=False, act=True):
+        groups = int(self.p[name]["kernel_q"].shape[-1]) if depthwise else 1
+        wn, bn = self._weights(name, depthwise)
+        y = self._conv(self._qdq_in(x, name), name, kernel, stride, groups,
+                       (kernel - 1) // 2, wn, bn)
+        return self._relu(y) if act else y
+
+    def deconv2x(self, x, name):
+        wn, bn = self._weights(name, depthwise=False, deconv=True)
+        y = self._conv(self._qdq_in(x, name), name, 2, 2, 1, 0, wn, bn, op="ConvTranspose")
+        return self._relu(y)
+
+    def head(self, x, name):
+        wn, bn = self._weights(name, depthwise=False)
+        return self._conv(self._qdq_in(x, name), name, 1, 1, 1, 0, wn, bn)
+
+
+def export_onnx_qdq(qparams: Dict[str, Dict[str, Any]], act_scales: Dict[str, float],
+                    input_hw, path: str, arch: str = "yolofastest") -> str:
+    """Serialise the int8-quantised graph as QDQ-form ONNX: ``qparams`` from
+    :func:`~yolofastest_torch.quant.ptq.quantize_weights`, ``act_scales``
+    from :func:`~yolofastest_torch.quant.ptq.calibrate`.  The portable
+    equivalent of ``model_int8.yfb``.  Returns ``path``."""
+    ex = _QdqOnnxExecutor(qparams, act_scales)
+    num_out = int(qparams["head_5"]["kernel_q"].shape[-1])
+    return _serialize(ex, arch, input_hw, num_out, path)
 
 
 # ------------------------------------------------------------------- import

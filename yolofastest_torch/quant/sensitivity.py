@@ -1,26 +1,35 @@
-"""Mixed-precision int8 deployment: named layers keep their fp kernel.
+"""Per-layer int8 sensitivity and mixed-precision int8 deployment.
 
-The deployment half of ``yolofastest_tpu/quant/sensitivity.py``:
-:func:`quantized_apply_mixed` (per-layer int8 graph) and
-:func:`quantized_apply_fused_mixed` (carried int8 activations) run every
-layer in ``fp_layers`` with the fp folded kernel and the rest with the int8
-one, each layer as exactly one of the two.  Both executors subclass the
-base :class:`Executor`, so the res chains run layer by layer and a kept
-``res*/conv*`` layer is picked like any other; the fp half never sees a
-whole chain (which would run the fp chain kernel inside the int8 graph).
-The sensitivity sweep (``layer_sensitivity`` and its dual/flagged
-executors) is not ported yet (ROADMAP).
+The port of ``yolofastest_tpu/quant/sensitivity.py``.
+
+* :func:`layer_sensitivity` quantises one layer at a time and measures the
+  head-logit damage against the fp folded heads.  As in JAX, the per-layer
+  int8/fp choice is data: ``flags`` are boolean tensors on the device, the
+  dual executors compute both halves of every layer and join them with
+  ``torch.where``, so the sweep is one forward per layer with no host read
+  in between; the table is read once at the end.
+* :func:`quantized_apply_mixed` (per-layer int8 graph) and
+  :func:`quantized_apply_fused_mixed` (carried int8 activations) deploy a
+  static fp-layer set, each layer as exactly one of the two kernels.
+
+Every executor here subclasses the base :class:`Executor`, so the res
+chains run layer by layer and a ``res*/conv*`` layer is picked like any
+other; the fp half never sees a whole chain (which would run the fp chain
+kernel inside the int8 graph: its launch count stays 0).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
 
 from yolofastest_torch.models.convert import torch_params_from_folded
 from yolofastest_torch.models.graph import Executor, FoldedExecutor
-from yolofastest_torch.quant.ptq import (_WALKS, Int8Executor, Int8FusedExecutor,
-                                         as_quant_params)
-from yolofastest_torch.utils.device import exact_fp32
+from yolofastest_torch.quant.ptq import (_WALKS, Int8Executor, Int8FusedExecutor, QuantParams,
+                                         _Q, as_quant_params, calibrate, quantize_weights)
+from yolofastest_torch.utils.device import exact_fp32, resolve_device
 
 
 def _check_fp_layers(qparams, fp_layers) -> None:
@@ -125,3 +134,141 @@ def quantized_apply_fused_mixed(qparams, folded, act_scales: Dict[str, float], x
                              fp_layers)
     with exact_fp32():
         return _WALKS[arch](ex.quantize_input(x), ex)
+
+
+# ------------------------------------------------------------------ the sweep
+class _DualExecutor(Executor):
+    """The fp folded and the int8 executors side by side, joined per layer
+    by ``flags[name]`` (a boolean tensor on the device, True = int8), so one
+    graph serves every subset.  Both halves exchange float tensors (the
+    int8 half quantises its own input)."""
+
+    def __init__(self, qparams: QuantParams, fp, act_scales, flags: Dict[str, torch.Tensor]):
+        self._q = Int8Executor(qparams, act_scales)
+        self._f = FoldedExecutor(fp)
+        self.flags = flags
+
+    def conv(self, x, name, kernel, stride=1, depthwise=False, act=True):
+        return torch.where(self.flags[name],
+                           self._q.conv(x, name, kernel, stride, depthwise, act),
+                           self._f.conv(x, name, kernel, stride, depthwise, act))
+
+    def deconv2x(self, x, name):
+        return torch.where(self.flags[name], self._q.deconv2x(x, name),
+                           self._f.deconv2x(x, name))
+
+    def head(self, x, name):
+        return torch.where(self.flags[name], self._q.head(x, name), self._f.head(x, name))
+
+
+class _DualFusedExecutor(Executor):
+    """Flags twin of :class:`_MixedFusedExecutor`: every layer computes the
+    int8 kernel and the fp kernel (input dequantised, output requantised at
+    ``out/<name>``), and ``flags[name]`` picks one of the two int8 results."""
+
+    def __init__(self, qparams: QuantParams, fp, act_scales, flags: Dict[str, torch.Tensor]):
+        self._q = Int8FusedExecutor(qparams, act_scales)
+        self._fp = FoldedExecutor(fp)
+        self.flags = flags
+        self.s = act_scales
+
+    def quantize_input(self, x_f32):
+        return self._q.quantize_input(x_f32)
+
+    def _both(self, name, yq: _Q, y_fp) -> _Q:
+        s_out = self.s[f"out/{name}"]
+        yf = self._q.requant(y_fp, s_out).q
+        return _Q(torch.where(self.flags[name], yq.q, yf), s_out)
+
+    def conv(self, x, name, kernel, stride=1, depthwise=False, act=True):
+        yq = self._q.conv(x, name, kernel, stride, depthwise, act)
+        yf = self._fp.conv(self._q.deq(x), name, kernel, stride, depthwise, act)
+        return self._both(name, yq, yf)
+
+    def deconv2x(self, x, name):
+        return self._both(name, self._q.deconv2x(x, name),
+                          self._fp.deconv2x(self._q.deq(x), name))
+
+    def head(self, x, name):
+        return torch.where(self.flags[name], self._q.head(x, name),
+                           self._fp.head(self._q.deq(x), name))
+
+    def add(self, x, y):
+        return self._q.add(x, y)
+
+    def concat(self, x, y):
+        return self._q.concat(x, y)
+
+
+def _device_flags(flags, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, dtype=torch.bool, device=device) for k, v in flags.items()}
+
+
+def quantized_apply_flagged(qparams, folded, act_scales: Dict[str, float], x,
+                            flags: Dict[str, Any], arch: str = "fastest"):
+    """Per-layer int8 pipeline with int8/fp chosen per layer by ``flags``
+    (True = int8; boolean tensors on ``x``'s device, or values made so).
+    ``qparams`` is :class:`QuantParams` or :func:`quantize_weights`' tree;
+    ``folded`` the fold_batchnorm tree or the fp executor's parameters."""
+    ex = _DualExecutor(as_quant_params(qparams, x.device),
+                       fp_params(folded, tuple(folded), x.device), act_scales,
+                       _device_flags(flags, x.device))
+    with exact_fp32():
+        return _WALKS[arch](x, ex)
+
+
+def quantized_apply_fused_flagged(qparams, folded, act_scales: Dict[str, float], x,
+                                  flags: Dict[str, Any], arch: str = "fastest"):
+    """The fused (carried-int8) pipeline with int8/fp chosen per layer by
+    ``flags`` (True = int8)."""
+    ex = _DualFusedExecutor(as_quant_params(qparams, x.device),
+                            fp_params(folded, tuple(folded), x.device), act_scales,
+                            _device_flags(flags, x.device))
+    with exact_fp32():
+        return _WALKS[arch](ex.quantize_input(x), ex)
+
+
+def layer_sensitivity(folded: Dict[str, Dict[str, np.ndarray]], batches: Sequence[Any],
+                      arch: str = "fastest", act_scales: Optional[Dict[str, float]] = None,
+                      device=None, **calib_kwargs) -> List[Dict[str, float]]:
+    """Quantise one layer at a time and measure the head-logit damage
+    against the fp folded graph, on ``device`` (the card unless the caller
+    asks for the CPU).  Returns ``[{layer, mean_abs, max_abs}]`` sorted worst
+    first (a stable sort, as JAX's).  ``calib_kwargs`` (method, percentile,
+    bins) feed :func:`calibrate` when ``act_scales`` is not given.
+
+    The batches are concatenated; the all-fp flags run once, then one
+    forward per layer in ``sorted`` name order, each with that layer's flag
+    alone set on the device; the table is read to the host once, at the
+    end."""
+    dev = resolve_device(device)
+    if act_scales is None:
+        act_scales = calibrate(folded, batches, arch=arch, device=dev, **calib_kwargs)
+    qparams = quantize_weights(folded)
+    names = sorted(qparams)
+    qp = QuantParams(qparams, dev)
+    fp = torch_params_from_folded(folded, dev, chains=False)
+    x = torch.from_numpy(np.concatenate([np.asarray(b, np.float32) for b in batches])).to(dev)
+    walk = _WALKS[arch]
+
+    def run(flagvec):
+        ex = _DualExecutor(qp, fp, act_scales, {n: flagvec[i] for i, n in enumerate(names)})
+        heads = walk(x, ex)
+        return heads if isinstance(heads, tuple) else (heads,)
+
+    zeros = torch.zeros(len(names), dtype=torch.bool, device=dev)
+    rows = []  # per layer: each head's sum of |d|, then the largest |d|
+    with torch.inference_mode(), exact_fp32():
+        fp_heads = run(zeros)
+        for i in range(len(names)):
+            flagvec = zeros.clone()
+            flagvec[i] = True
+            diffs = [(h - f).abs() for h, f in zip(run(flagvec), fp_heads)]
+            rows.append(torch.stack([*(d.sum() for d in diffs),
+                                     torch.stack([d.amax() for d in diffs]).amax()]))
+        table = torch.stack(rows).cpu().tolist()  # the one host read
+    size = sum(h.numel() for h in fp_heads)
+    out = [{"layer": n, "mean_abs": sum(r[:-1]) / size, "max_abs": r[-1]}
+           for n, r in zip(names, table)]
+    out.sort(key=lambda r: -r["mean_abs"])
+    return out

@@ -167,6 +167,19 @@ def clip_by_global_norm(g: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.where(norm < max_norm, g, (g / norm) * max_norm)
 
 
+def adam_update(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                count: torch.Tensor, lr) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """optax's ``adam(lr)`` on a flat gradient: ``(update, mu, nu)``, with
+    the moments' bias corrected at ``count`` (the updates taken, this one
+    included) and eps outside the square root."""
+    mu = (1.0 - ADAM_B1) * g + ADAM_B1 * mu
+    nu = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * nu
+    c = count.to(mu.dtype)
+    mu_hat = mu / (1.0 - torch.pow(ADAM_B1, c))
+    nu_hat = nu / (1.0 - torch.pow(ADAM_B2, c))
+    return -lr * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)), mu, nu
+
+
 def ema_decay_at(step: int, decay: float, ramp: int) -> np.float32:
     """The ramped EMA decay at ``step`` (the count before it moves), in
     float32 as the JAX step computes it."""
@@ -271,12 +284,8 @@ def make_train_step(model: torch.nn.Module, config: Config, lr_schedule: Callabl
         if tr.grad_clip_norm and tr.grad_clip_norm > 0:
             g = clip_by_global_norm(g, tr.grad_clip_norm)
         count_inc = state.count + 1
-        mu = (1.0 - ADAM_B1) * g + ADAM_B1 * state.mu
-        nu = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * state.nu
-        c = count_inc.to(state.mu.dtype)
-        mu_hat = mu / (1.0 - torch.pow(ADAM_B1, c))
-        nu_hat = nu / (1.0 - torch.pow(ADAM_B2, c))
-        update = -lr_schedule(state.count) * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS))
+        update, mu, nu = adam_update(g, state.mu, state.nu, count_inc,
+                                     lr_schedule(state.count))
         state.params.copy_(torch.where(grads_finite, state.params + update, state.params))
         if tr.ema_decay > 0:
             one_minus_d = float(np.float32(1.0) - ema_decay_at(state.step, tr.ema_decay,
