@@ -34,9 +34,15 @@ calibration on the card against the CPU with a cache written and read,
 launches, and both backends timed beside fp32), quant2 (the sensitivity
 sweep, timed, and against the CPU port's, QAT steps card against CPU in float64 and
 fp32 with the teacher's chain launches and the steps/s, and ``export
---calib-data --qat-steps --device cuda``'s int8 files); then the
-``{"kernels": [...]}`` summary, and last ``{"ok": true, "device": {...}}``.  Every path
-resets the kernel launch counts before it runs and checks them after.
+--calib-data --qat-steps --device cuda``'s int8 files), native (the C++
+engine of ``cpp/`` on the host CPU, found or built from the checkout's
+sources: fp32 at both sizes against the fp Detector on the card and timed
+beside its B=1 latency, with the host CPU's model; ``native-int8`` from the
+three shipped artifacts; ``native-int8`` calibrated on the card; ``detect``,
+``serve``, ``video`` and ``eval`` with ``--backend native``, none of which
+launches a CUDA kernel); then the ``{"kernels": [...]}`` summary, and last
+``{"ok": true, "device": {...}}``.  Every path resets the kernel launch
+counts before it runs and checks them after.
 
 Any failed check raises, so the script exits non-zero and prints no ok line;
 without a CUDA card it exits 2 at once.  It imports nothing of JAX.  The
@@ -1065,6 +1071,268 @@ def quant2_path(card, counted) -> dict:
     return counts
 
 
+def host_cpu() -> str:
+    """The host CPU: its model name (``lscpu``, else /proc/cpuinfo; a virtual
+    machine may say "unknown"), vendor, family and model numbers, and count."""
+    info = {}
+    if os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                info.setdefault(key.strip(), value.strip())
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+    except OSError:
+        out = ""
+    names = [ln.split(":", 1)[1].strip() for ln in out.splitlines()
+             if ln.strip().startswith("Model name")]
+    name = next((n for n in names + [info.get("model name", "")]
+                 if n and n.lower() != "unknown"), "unknown")
+    return (f"{name} ({info.get('vendor_id', '?')} family {info.get('cpu family', '?')} "
+            f"model {info.get('model', '?')}, {os.cpu_count()} CPUs)")
+
+
+def native_path(card, counted) -> dict:
+    """The native phase: the C++ engine of ``cpp/`` on the host CPU
+    (``yolofastest_torch.native``), found or built from the checkout's
+    sources.  The engine at 256x320 and 512x640 from the port's ``.yfb``
+    against the port's fp Detector on the card (heads within rtol 1e-4, atol
+    2e-3; golden 34/34 and 33/33), and timed per image beside the Detector's
+    B=1 latency from the same net input; ``native-int8`` from the three
+    shipped artifacts (recall, int8 layers, ms); ``native-int8`` calibrated
+    on the card by ``detect`` on a cache miss, its scales against a CPU
+    calibration; then ``detect``, ``serve``, ``video`` and ``eval`` with
+    ``--backend native`` on the golden frames.  The engine launches no CUDA
+    kernel: every native run's counts must stay 0.  One JSON line; returns
+    the launch counts of each run."""
+    import contextlib
+    import io
+    import tempfile
+    import urllib.request
+
+    import cv2
+    import torch
+
+    from yolofastest_torch.cli import build_parser
+    from yolofastest_torch.cli import main as cli_main
+    from yolofastest_torch.cli._common import load_calibration
+    from yolofastest_torch.cli.serve import build_server
+    from yolofastest_torch.configs import get_config
+    from yolofastest_torch.data import write_voc_xml
+    from yolofastest_torch.export import save_native_weights
+    from yolofastest_torch.inference import Detector, detections_to_lists
+    from yolofastest_torch.models import fold_batchnorm, load_variables
+    from yolofastest_torch.native import NativeEngine, find_library
+    from yolofastest_torch.ops import unpack_detections
+    from yolofastest_torch.quant import calibrate, load_int8_zoo, mixed_native_tree
+
+    t0 = time.perf_counter()
+    cpu = host_cpu()
+    lib_path, build = find_library()
+    with open("/proc/cpuinfo") as f:
+        vnni = "avx512_vnni" in f.read()
+    if not vnni:  # the library's scalar int8 path: the same values, slower
+        os.environ["YF_INT8"] = "1"
+    counts = {}
+
+    def per_image_ms(fn, imgs, reps=3):
+        times = []
+        for _ in range(reps):
+            for img in imgs:
+                t = time.perf_counter()
+                fn(img)
+                times.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(times))
+
+    def net_input(pre):
+        return (pre.astype(np.float32)[..., None] - 128.0) / 255.0
+
+    def cli(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(argv)
+        return rc, out.getvalue()
+
+    fixtures = {res: np.load(os.path.join(FIXTURES, f"golden_{res}.npz"))
+                for res in ("256x320", "512x640")}
+    fp, int8 = {}, {}
+    with tempfile.TemporaryDirectory(prefix="yf_native_") as tmp:
+        for res in ("256x320", "512x640"):
+            cfg, fx = get_config(res), fixtures[res]
+            x = net_input(fx["pre_imgs"])
+            variables = load_variables(os.path.join(WEIGHTS, f"yolofastest_{res}.npz"))
+            yfb = os.path.join(tmp, f"{res}.yfb")
+            save_native_weights(fold_batchnorm(variables), yfb, io_config=cfg.io)
+            eng = NativeEngine(yfb, cfg, library_path=lib_path)
+            det = Detector(cfg, variables=variables, device="cuda")
+            ref, counts[f"detector_heads/{res}"] = counted(
+                lambda: [h.cpu().numpy() for h in det.forward_heads(x)])
+            (heads, rows), counts[f"native/{res}"] = counted(
+                lambda: ([eng.forward(img) for img in x], [eng.detect(img) for img in x]))
+            ratio = max(float(np.max(np.abs(h - r[i]) / (2e-3 + 1e-4 * np.abs(r[i]))))
+                        for i, hs in enumerate(heads) for h, r in zip(hs, ref))
+            det.warmup(1)
+            fp[res] = {
+                "recall_iou_0_5": [recall_iou(rows, fx["boxes"]), int(fx["boxes"].shape[0])],
+                "heads_ratio_to_tolerance": ratio, "int8_layers": eng.int8_layers,
+                "native_ms_per_image": per_image_ms(eng.detect, x),
+                "detector_b1_ms": per_image_ms(lambda img: detections_to_lists(
+                    unpack_detections(det.run_packed(img[None]))), x)}
+        artifacts = {"256x320": ("256x320", "yolofastest_int8_256x320.npz", 57),
+                     "512x640": ("512x640", "yolofastest_int8_512x640.npz", 57),
+                     "pruned040_256x320": ("256x320", "yolofastest_int8_pruned040_256x320.npz",
+                                           56)}
+        for name, (res, fname, n_int8) in artifacts.items():
+            cfg, fx = get_config(res), fixtures[res]
+            x = net_input(fx["pre_imgs"])
+            folded, scales, keep = load_int8_zoo(os.path.join(WEIGHTS, fname))
+            tree, nscales = mixed_native_tree(folded, scales, keep)
+            yfb = os.path.join(tmp, f"int8_{name}.yfb")
+            save_native_weights(tree, yfb, act_scales=nscales, io_config=cfg.io)
+            eng = NativeEngine(yfb, cfg, library_path=lib_path)
+            rows, counts[f"native_int8/{name}"] = counted(lambda: [eng.detect(img) for img in x])
+            int8[name] = {"recall_iou_0_5": [recall_iou(rows, fx["boxes"]),
+                                             int(fx["boxes"].shape[0])],
+                          "int8_layers": [eng.int8_layers, n_int8], "keep_fp": list(keep),
+                          "ms_per_image": per_image_ms(eng.detect, x)}
+
+        # the golden frames as 512x640 .jpg files, a VOC set with the
+        # golden_map targets, and a video of them
+        fx = fixtures["256x320"]
+        x = net_input(fx["pre_imgs"])
+        frames = make_frames(fx["pre_imgs"])
+        voc, imgs = os.path.join(tmp, "voc"), os.path.join(tmp, "voc", "img")
+        os.makedirs(imgs)
+        os.makedirs(os.path.join(voc, "xml"))
+        targets = np.load(os.path.join(FIXTURES, "golden_map.npz"))["targets"]
+        names = get_config("256x320").io.class_names
+        clip = os.path.join(tmp, "clip.avi")
+        writer = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"MJPG"), 25.0, (640, 512))
+        for i, frame in enumerate(frames):
+            cv2.imwrite(os.path.join(imgs, f"g{i:02d}.jpg"), frame)
+            writer.write(frame)
+            rows = targets[i][targets[i][:, 5] > 1]
+            write_voc_xml(os.path.join(voc, "xml", f"g{i:02d}.xml"), f"g{i:02d}.jpg",
+                          (512, 640, 3),
+                          [(names[int(c)], (xc - w / 2) * 640, (yc - h / 2) * 512,
+                            (xc + w / 2) * 640, (yc + h / 2) * 512) for xc, yc, w, h, c, _ in rows])
+        writer.release()
+        zoo = os.path.join(WEIGHTS, "yolofastest_256x320.npz")
+
+        # native-int8 calibrated on the card by `detect` on a cache miss
+        cache = os.path.join(tmp, "card.calib.json")
+        t = time.perf_counter()
+        (rc, _), counts["detect_native_int8"] = counted(lambda: cli(
+            ["detect", "--weights", zoo, "--data", imgs, "--out", os.path.join(tmp, "d8"),
+             "--backend", "native-int8", "--calibration-cache", cache, "--device", "cuda"]))
+        detect8_s = time.perf_counter() - t
+        with open(cache) as f:
+            card_scales = {k: float(v) for k, v in json.load(f).items()}
+        folded = fold_batchnorm(load_variables(zoo))
+        cpu_scales = calibrate(folded, [load_calibration(imgs, get_config("256x320").io)],
+                               device="cpu")
+        rel = max(abs(card_scales[k] - v) / v for k, v in cpu_scales.items())
+        recalls = {}
+        for side, sc in (("card", card_scales), ("cpu", cpu_scales)):
+            tree, nscales = mixed_native_tree(folded, sc, ())
+            yfb = os.path.join(tmp, f"calibrated_{side}.yfb")
+            save_native_weights(tree, yfb, act_scales=nscales, io_config=get_config("256x320").io)
+            eng = NativeEngine(yfb, get_config("256x320"), library_path=lib_path)
+            recalls[side] = recall_iou([eng.detect(img) for img in x], fx["boxes"])
+        calibrated = {"rc": rc, "seconds": detect8_s, "same_keys": card_scales.keys()
+                      == cpu_scales.keys(), "max_rel_scale_distance_card_vs_cpu": rel,
+                      "recall_iou_0_5_card_scales": recalls["card"],
+                      "recall_iou_0_5_cpu_scales": recalls["cpu"],
+                      "launches": counts["detect_native_int8"]}
+
+        # the four commands with --backend native
+        cmds = {}
+        native = ["--weights", zoo, "--backend", "native"]
+        t = time.perf_counter()
+        (rc, _), counts["cmd_detect"] = counted(lambda: cli(
+            ["detect", *native, "--data", imgs, "--out", os.path.join(tmp, "d")]))
+        written = sorted(os.listdir(os.path.join(tmp, "d")))
+        with open(os.path.join(tmp, "d", "model.yfb"), "rb") as a, \
+                open(os.path.join(tmp, "256x320.yfb"), "rb") as b:
+            same_yfb = a.read() == b.read()
+        cmds["detect"] = {"rc": rc, "results": sum(f.startswith("result_") for f in written),
+                          "model_yfb_equal_to_phase": same_yfb,
+                          "seconds": time.perf_counter() - t}
+        t = time.perf_counter()
+        server = build_server(build_parser().parse_args(
+            ["serve", *native, "--port", "0", "--max-batch", "4"]))
+        server.start()
+        try:
+            body = cv2.imencode(".png", frames[0])[1].tobytes()
+            req = urllib.request.Request(f"http://127.0.0.1:{server.port}/detect", data=body,
+                                         method="POST")
+            reply, counts["cmd_serve"] = counted(
+                lambda: json.load(urllib.request.urlopen(req, timeout=60)))
+        finally:
+            server.close()
+        want = get_config("256x320")
+        got_rows = [[*d["box_net"], d["conf"], d["cls_score"], float(d["cls"])]
+                    for d in reply["detections"]]
+        eng = NativeEngine(os.path.join(tmp, "256x320.yfb"), want, library_path=lib_path)
+        cmds["serve"] = {"count": reply["count"], "rows_equal_engine": got_rows
+                         == eng.detect(x[0]), "backend": server.backend,
+                         "seconds": time.perf_counter() - t}
+        t = time.perf_counter()
+        (rc, out), counts["cmd_video"] = counted(lambda: cli(
+            ["video", *native, "--video", clip, "--out", os.path.join(tmp, "v"), "--track"]))
+        stats = json.loads(out.strip().splitlines()[-1])
+        cmds["video"] = {"rc": rc, "frames": stats["frames"], "tracks": stats["tracks"],
+                         "fps": stats["fps"], "seconds": time.perf_counter() - t}
+        maps = {}
+        for backend in ("native", "fp"):
+            j = os.path.join(tmp, f"eval_{backend}.json")
+            t = time.perf_counter()
+            (rc, _), counts[f"cmd_eval_{backend}"] = counted(lambda: cli(
+                ["eval", "--weights", zoo, "--backend", backend, "--val-dir", voc, "--json-out",
+                 j, "--log-dir", os.path.join(tmp, "l")]))
+            with open(j) as f:
+                maps[backend] = {"rc": rc, "mAP": json.load(f)["mAP"],
+                                 "seconds": time.perf_counter() - t}
+        cmds["eval"] = maps
+    emit("native", card=card, host_cpu=cpu, host_avx512_vnni=vnni,
+         library={"path": os.path.relpath(lib_path, ROOT), "built_now": build is not None,
+                  **(build or {})},
+         fp32=fp, int8=int8, calibrated_on_card=calibrated, commands=cmds, launches=counts,
+         note="native ms: host clock per engine.detect call (net input in, rows out), median "
+              "of 3 passes over the 20 golden frames, on the host CPU named; detector_b1_ms: "
+              "the port's fp Detector on the card, run_packed of one net input and its rows "
+              "fetched, the same way",
+         seconds=time.perf_counter() - t0)
+    for res, r in fp.items():
+        check(r["recall_iou_0_5"][0] == r["recall_iou_0_5"][1],
+              f"native {res}: golden recall {r['recall_iou_0_5']}")
+        check(r["heads_ratio_to_tolerance"] <= 1.0 and r["int8_layers"] == 0,
+              f"native {res}: heads off the Detector's on the card: {r}")
+    for name, r in int8.items():
+        check(r["recall_iou_0_5"][0] == r["recall_iou_0_5"][1]
+              and r["int8_layers"][0] == r["int8_layers"][1],
+              f"native-int8 {name}: recall or int8 layers {r}")
+    check(calibrated["rc"] == 0 and calibrated["same_keys"]
+          and calibrated["max_rel_scale_distance_card_vs_cpu"] <= 1e-5
+          and abs(recalls["card"] - recalls["cpu"]) <= 1,
+          f"native-int8 calibrated on the card: {calibrated}")
+    check(cmds["detect"]["rc"] == 0 and cmds["detect"]["results"] == 20
+          and cmds["detect"]["model_yfb_equal_to_phase"], f"detect --backend native: {cmds}")
+    check(cmds["serve"]["count"] >= 1 and cmds["serve"]["rows_equal_engine"]
+          and cmds["serve"]["backend"] == "native", f"serve --backend native: {cmds['serve']}")
+    check(cmds["video"]["rc"] == 0 and cmds["video"]["frames"] == 20
+          and cmds["video"]["tracks"] > 0, f"video --backend native: {cmds['video']}")
+    check(maps["native"]["rc"] == maps["fp"]["rc"] == 0
+          and abs(maps["native"]["mAP"] - maps["fp"]["mAP"]) <= 1e-3,
+          f"eval --backend native against fp on the card: {maps}")
+    for key, c in counts.items():
+        if key.startswith("detector_heads") or key == "cmd_eval_fp":
+            check(c["res_chain_rows"] > 0, f"native phase reference {key}: launches {c}")
+        else:
+            check(not any(c.values()), f"native phase {key}: CUDA launches {c}, want none")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1785,6 +2053,9 @@ def main() -> int:
 
     # --------------------------------------- quantisation tools (sweep, QAT)
     quant2_path(card, counted)
+
+    # ------------------------------------------- the C++ engine (host CPU)
+    native_path(card, counted)
 
     # ------------------------------------------------------- kernels summary
     f32 = sums["float32/B64"]

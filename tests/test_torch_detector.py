@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from chip_smoke import box_iou, golden_match, make_frames
-from tests._jax_refs import jax_refs  # noqa: F401 (a fixture)
+from tests._jax_refs import jax_refs, register  # noqa: F401 (jax_refs: a fixture)
 from yolofastest_torch.configs import get_config
 from yolofastest_torch.inference import Detector, detections_to_lists
 from yolofastest_torch.models import load_variables, zoo_path
@@ -47,57 +47,6 @@ def test_golden_boxes_strict(setup):
     rows[1].append(list(rows[1][0]))
     matched, notes = golden_match(rows, fx["boxes"], fx["pre_imgs"].shape[0])
     assert matched == 33 and len(notes) == 2
-
-
-def test_run_raw_matches_jax_detector(setup):
-    """Same numpy weights, same frames, fp32 on both sides: equal counts and
-    classes, boxes within 1 px (summation order only)."""
-    from yolofastest_tpu.configs import get_config as jget_config
-    from yolofastest_tpu.inference import Detector as JDetector
-
-    variables, fx, det = setup
-    frames = make_frames(fx["pre_imgs"][:2])
-    jdet = JDetector(jget_config("256x320"), variables=variables, fold_bn=True)
-    theirs = {k: np.asarray(v) for k, v in jdet.run_raw(jnp.asarray(frames)).items()}
-    ours = {k: v.numpy() for k, v in det.run_raw(frames).items()}
-    np.testing.assert_array_equal(ours["count"], theirs["count"])
-    np.testing.assert_array_equal(ours["valid"], theirs["valid"])
-    assert ours["count"].sum() == 4  # both frames hold golden boxes
-    for b in range(2):
-        n = int(theirs["count"][b])
-        np.testing.assert_array_equal(ours["cls_idx"][b, :n], theirs["cls_idx"][b, :n])
-        np.testing.assert_allclose(ours["boxes"][b, :n], theirs["boxes"][b, :n], atol=1.0)
-        np.testing.assert_allclose(ours["conf"][b, :n], theirs["conf"][b, :n], atol=1e-4)
-
-
-def test_pruned040_matches_jax_detector():
-    """The pruned checkpoint (inner widths 8..136) on all 20 frames: the same
-    detections as the JAX Detector (counts, classes, boxes within 1 px), and
-    the same golden recall by both rules: 34/34 by the golden suite's IoU >
-    0.5 (tools/run_golden_suite.py:37-47), 27/34 within 3 px."""
-    from yolofastest_tpu.configs import get_config as jget_config
-    from yolofastest_tpu.inference import Detector as JDetector
-
-    variables = load_variables(os.path.join(ROOT, "weights",
-                                            "yolofastest_pruned040_256x320.npz"))
-    fx = np.load(os.path.join(FIXTURES, "golden_256x320.npz"))
-    x = (fx["pre_imgs"].astype(np.float32)[..., None] - 128.0) / 255.0
-    ours = Detector(get_config("256x320"), variables=variables, device="cpu").run(x)
-    theirs = JDetector(jget_config("256x320"), variables=variables, fold_bn=True).run(
-        jnp.asarray(x))
-    np.testing.assert_array_equal(ours["count"].numpy(), np.asarray(theirs["count"]))
-    rows, jrows = detections_to_lists(ours), detections_to_lists(
-        {k: np.asarray(v) for k, v in theirs.items()})
-    for mine, ref in zip(rows, jrows):
-        assert [r[6] for r in mine] == [r[6] for r in ref]
-        np.testing.assert_allclose([r[:4] for r in mine], [r[:4] for r in ref], atol=1.0)
-
-    g = fx["boxes"]
-    by_iou = sum(any(int(r[6]) == int(b[7]) and box_iou(r[:4], b[1:5]) > 0.5
-                     for r in rows[int(b[0])]) for b in g)
-    by_px = sum(any(int(r[6]) == int(b[7]) and max(abs(np.array(r[:4]) - b[1:5])) <= 3.0
-                    for r in rows[int(b[0])]) for b in g)
-    assert (by_iou, by_px) == (34, 27)
 
 
 def test_run_packed_and_run_agree(setup):
@@ -180,6 +129,10 @@ IMPORTS_CODE = (
     "import yolofastest_torch.quant.zoo, yolofastest_torch.quant.qat\n"
     "import yolofastest_torch.models.summary, yolofastest_torch.cli.quantize\n"
     "import yolofastest_torch.models.torch_io, yolofastest_torch.export.torchscript\n"
+    "import yolofastest_torch.native, yolofastest_torch.native.engine\n"
+    "import yolofastest_torch.data.anchors, yolofastest_torch.data.txt2xml\n"
+    "import yolofastest_torch.data.lmdb_reader, yolofastest_torch.cli.datatools\n"
+    "import yolofastest_torch.cli.info\n"
     "bad = [m for m in sys.modules if 'flax' in m or 'yolofastest_tpu' in m]\n"
     "print(bad)\n"
     "sys.exit(1 if bad else 0)\n")
@@ -203,7 +156,9 @@ def test_sources_import_no_jax():
     for module in ("export/onnx.py", "export/ncnn.py", "export/caffe.py", "export/native.py",
                    "export/torchscript.py", "quant/ptq.py", "quant/sensitivity.py",
                    "quant/zoo.py", "quant/qat.py", "models/torch_io.py",
-                   "models/summary.py", "cli/export.py", "cli/quantize.py"):
+                   "models/summary.py", "cli/export.py", "cli/quantize.py", "native/__init__.py",
+                   "native/engine.py", "data/anchors.py", "data/txt2xml.py",
+                   "data/lmdb_reader.py", "cli/datatools.py", "cli/info.py"):
         assert os.path.join(ROOT, "yolofastest_torch", module) in paths, module
     for p in paths:
         with open(p) as f:
@@ -246,3 +201,70 @@ def test_cli_detect_cpu(tmp_path):
     with pytest.raises(FileNotFoundError):
         main(["detect", "--weights", "w.pth", "--data", str(data), "--out", str(out),
               "--device", "cpu"])
+
+
+# ------------------------------------- against the JAX Detector (the pool), last
+
+def _jax_detector(weights, raw):
+    """The JAX Detector's detections (numpy) from the golden frames (a worker
+    of tests/_jax_refs.py): ``run_raw`` on the first two as uint8 frames, or
+    ``run`` on all 20 net inputs."""
+    from yolofastest_tpu.configs import get_config as jget_config
+    from yolofastest_tpu.inference import Detector as JDetector
+
+    fx = np.load(os.path.join(FIXTURES, "golden_256x320.npz"))
+    jdet = JDetector(jget_config("256x320"), fold_bn=True, variables=load_variables(
+        os.path.join(ROOT, "weights", f"yolofastest_{weights}.npz")))
+    if raw:
+        out = jdet.run_raw(jnp.asarray(make_frames(fx["pre_imgs"][:2])))
+    else:
+        out = jdet.run(jnp.asarray((fx["pre_imgs"].astype(np.float32)[..., None] - 128.0) / 255.0))
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+register("detector/run_raw", _jax_detector, lambda: ("256x320", True),
+         tests=("test_run_raw_matches_jax_detector",))
+register("detector/pruned040", _jax_detector, lambda: ("pruned040_256x320", False),
+         tests=("test_pruned040_matches_jax_detector",))
+
+
+def test_run_raw_matches_jax_detector(setup, jax_refs):  # noqa: F811
+    """Same numpy weights, same frames, fp32 on both sides: equal counts and
+    classes, boxes within 1 px (summation order only)."""
+    _, fx, det = setup
+    frames = make_frames(fx["pre_imgs"][:2])
+    theirs = jax_refs["detector/run_raw"]
+    ours = {k: v.numpy() for k, v in det.run_raw(frames).items()}
+    np.testing.assert_array_equal(ours["count"], theirs["count"])
+    np.testing.assert_array_equal(ours["valid"], theirs["valid"])
+    assert ours["count"].sum() == 4  # both frames hold golden boxes
+    for b in range(2):
+        n = int(theirs["count"][b])
+        np.testing.assert_array_equal(ours["cls_idx"][b, :n], theirs["cls_idx"][b, :n])
+        np.testing.assert_allclose(ours["boxes"][b, :n], theirs["boxes"][b, :n], atol=1.0)
+        np.testing.assert_allclose(ours["conf"][b, :n], theirs["conf"][b, :n], atol=1e-4)
+
+
+def test_pruned040_matches_jax_detector(jax_refs):  # noqa: F811
+    """The pruned checkpoint (inner widths 8..136) on all 20 frames: the same
+    detections as the JAX Detector (counts, classes, boxes within 1 px), and
+    the same golden recall by both rules: 34/34 by the golden suite's IoU >
+    0.5 (tools/run_golden_suite.py:37-47), 27/34 within 3 px."""
+    variables = load_variables(os.path.join(ROOT, "weights",
+                                            "yolofastest_pruned040_256x320.npz"))
+    fx = np.load(os.path.join(FIXTURES, "golden_256x320.npz"))
+    x = (fx["pre_imgs"].astype(np.float32)[..., None] - 128.0) / 255.0
+    ours = Detector(get_config("256x320"), variables=variables, device="cpu").run(x)
+    theirs = jax_refs["detector/pruned040"]
+    np.testing.assert_array_equal(ours["count"].numpy(), theirs["count"])
+    rows, jrows = detections_to_lists(ours), detections_to_lists(theirs)
+    for mine, ref in zip(rows, jrows):
+        assert [r[6] for r in mine] == [r[6] for r in ref]
+        np.testing.assert_allclose([r[:4] for r in mine], [r[:4] for r in ref], atol=1.0)
+
+    g = fx["boxes"]
+    by_iou = sum(any(int(r[6]) == int(b[7]) and box_iou(r[:4], b[1:5]) > 0.5
+                     for r in rows[int(b[0])]) for b in g)
+    by_px = sum(any(int(r[6]) == int(b[7]) and max(abs(np.array(r[:4]) - b[1:5])) <= 3.0
+                    for r in rows[int(b[0])]) for b in g)
+    assert (by_iou, by_px) == (34, 27)

@@ -185,12 +185,22 @@ def test_average_precision_known_values():
 
 
 def test_backend_adapter_native_raises():
+    """The per-image engine's branch (the native engine is ported): rows land
+    in the detection dict as the JAX adapter places them (padding zero, a
+    count per image); anything else still raises."""
+    from yolofastest_tpu.eval import make_backend_eval_fn as jmake_backend_eval_fn
+
     class Native:
         def detect(self, img, max_det=64):
-            return []
+            return [[1.0, 2.0, 3.0, 4.0, 0.9, 0.8, 2]][:max_det]
 
-    with pytest.raises(TypeError, match="Native engine"):
-        make_backend_eval_fn(Native())
+    imgs = np.zeros((3, 16, 16, 1), np.float32)
+    det = make_backend_eval_fn(Native(), max_det=8)(None, imgs)
+    want = jmake_backend_eval_fn(Native(), max_det=8)(None, imgs)
+    assert det.keys() == want.keys() and det["boxes"].shape == (3, 8, 4)
+    for k in det:
+        np.testing.assert_array_equal(det[k], want[k])
+    assert det["count"].tolist() == [1, 1, 1] and not det["conf"][:, 1:].any()
     with pytest.raises(TypeError, match="cannot adapt"):
         make_backend_eval_fn(object())
 

@@ -617,19 +617,21 @@ def test_cli_detect_matches_jax_command(jax_refs, epoch_dir, tmp_path, name):  #
 
 
 def test_cli_detect_rejects_unported_backends(tmp_path, capsys):
-    """The native backends exit 2 naming their ROADMAP item; the int8 ones
-    are ported (tests/test_torch_quant.py) and, with no images to calibrate
-    on and no cache, exit 2 with the JAX commands' messages instead."""
+    """Every backend is ported now (the native ones in
+    tests/test_torch_native.py); with no images to calibrate on and no cache
+    the int8 ones and native-int8 exit 2 with the JAX commands' messages,
+    before any engine is made."""
     from yolofastest_torch.cli import main
 
     base = ["--weights", zoo_path("256x320"), "--device", "cpu", "--calibration-cache",
             str(tmp_path / "c.json")]
-    for backend, item in (("native", "Native engine"), ("native-int8", "Native engine")):
-        assert main(["detect", *base, "--data", str(tmp_path), "--out", str(tmp_path / "o"),
-                     "--backend", backend]) == 2
-        assert main(["video", *base, "--video", "v.avi", "--out", str(tmp_path / "o"),
-                     "--backend", backend]) == 2
-        assert f"ROADMAP: '{item}'" in capsys.readouterr().err
+    assert main(["detect", *base, "--data", str(tmp_path), "--out", str(tmp_path / "o"),
+                 "--backend", "native-int8"]) == 2
+    assert f"no calibration images (.jpg/.png/.bmp) in {tmp_path}" in capsys.readouterr().out
+    assert main(["video", *base, "--video", "v.avi", "--out", str(tmp_path / "o"),
+                 "--backend", "native-int8"]) == 2
+    err = capsys.readouterr().err
+    assert "native-int8 calibration needs images: pass a data/--calib-data" in err
     for backend in ("int8", "int8-fused"):
         assert main(["detect", *base, "--data", str(tmp_path), "--out", str(tmp_path / "o"),
                      "--backend", backend]) == 2

@@ -484,10 +484,10 @@ def test_int8_writers_byte_equal_jax(case, fmt, tmp_path):
     else:
         folded, scales = small_case("lite")[0], small_scales("lite")
         cfg = get_config("lite-256x320")
-    q = jquant(folded)
+    q, ours_q = jquant(folded), quantize_weights(folded)
     for name in q:
         for leaf in q[name]:
-            np.testing.assert_array_equal(quantize_weights(folded)[name][leaf], q[name][leaf])
+            np.testing.assert_array_equal(ours_q[name][leaf], q[name][leaf])
     write = {"onnx": (lambda f, path: f(q, scales, cfg.io.input_hw, path, arch=graph),
                       export_onnx_qdq, jqdq),
              "table": (lambda f, path: f(q, scales, path, arch=graph), export_ncnn_table, jtable),

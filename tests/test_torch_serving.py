@@ -171,12 +171,19 @@ def test_batcher_surfaces_errors_and_keeps_serving():
 
 
 def test_make_batch_fn_takes_run_packed_only():
+    """Besides ``run_packed``, the per-image engine's ``detect`` (the native
+    engine is ported): the first ``n`` images, each capped at ``max_det``,
+    as the JAX adapter returns them; anything else raises."""
+    from yolofastest_tpu.inference import make_batch_fn as jmake_batch_fn
+
     class Native:
         def detect(self, img, max_det=64):
-            return []
+            return ([[float(img[0, 0]), 2.0, 3.0, 4.0, 0.9, 0.8, 1]] * 3)[:max_det]
 
-    with pytest.raises(TypeError, match="Native engine"):
-        make_batch_fn(Native())
+    batch = np.arange(4, dtype=np.float32).reshape(4, 1, 1, 1) * np.ones((4, 2, 2, 1), np.float32)
+    got = make_batch_fn(Native(), max_det=2)(batch, 3)
+    assert got == jmake_batch_fn(Native(), max_det=2)(batch, 3)
+    assert len(got) == 3 and len(got[2]) == 2 and got[2][0][0] == 2.0
     with pytest.raises(TypeError, match="cannot adapt"):
         make_batch_fn(object())
 
@@ -394,12 +401,8 @@ def test_detect_video_tracks(det, clip, tmp_path):
 
 
 def test_detect_video_rejects_bad_sources(det, tmp_path):
-    class Native:
-        def detect(self, img, max_det=64):
-            return []
-
-    with pytest.raises(TypeError, match="Native engine"):
-        detect_video(Native(), det.config, "x.avi", str(tmp_path / "o.avi"))
+    with pytest.raises(TypeError, match="cannot drive object"):
+        detect_video(object(), det.config, "x.avi", str(tmp_path / "o.avi"))
     with pytest.raises(FileNotFoundError):
         detect_video(det, det.config, str(tmp_path / "missing.avi"), str(tmp_path / "o.avi"))
 

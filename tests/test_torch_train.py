@@ -873,8 +873,8 @@ def test_cli_train_resume_and_eval(dataset, golden_voc, jax_refs, tmp_path, caps
     validation each epoch, --max-to-keep 1): the reference's log lines and
     epoch_<n> directories; `--resume latest` picks up at epoch 2; `eval`
     scores the checkpoint directory, and on the golden VOC set with the zoo
-    weights prints the JAX `eval`'s mAP line; the unported formats and
-    backends exit with 2."""
+    weights prints the JAX `eval`'s mAP line; the unported formats, and
+    native-int8 with nothing to calibrate on, exit with 2."""
     from yolofastest_torch.cli import main
 
     jcfg = _jcfg()
@@ -915,7 +915,7 @@ def test_cli_train_resume_and_eval(dataset, golden_voc, jax_refs, tmp_path, caps
     ours = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("mAP:")]
     rc, theirs = jax_refs["train/cli_eval"]
     assert rc == 0 and ours == [f"mAP: {theirs['mAP']:.4f}"] and theirs["mAP"] > 0.3
-    for extra in (["--backend", "native-int8"], ["--backend", "native"],
+    for extra in (["--backend", "native-int8", "--calibration-cache", str(tmp_path / "n.json")],
                   ["--weights", str(tmp_path)]):
         args = ev + ["--weights", zoo_path("256x320")] if extra[0] == "--backend" else ev
         assert main(args + extra) == 2, extra

@@ -6,8 +6,10 @@ under the port's names: ``load_calibration`` (``_load_calibration``),
 ``calib_kwargs``, ``int8_cache_path``, ``resolve_int8_calibration``
 (``_resolve_jax_int8_calibration``), ``parse_keep_fp``, ``resolve_int8_zoo``
 and ``add_int8_args`` (the flags of ``parser.py``, with
-``_add_calib_method_flags``); ``build_detector`` is the Detector branch of
-``_build_engine``.
+``_add_calib_method_flags``) and ``native_int8_scales``
+(``_native_int8_scales``); ``build_detector`` is ``_build_engine``, and
+``write_native_weights`` stages the native backends' ``.yfb`` as its native
+branch and the JAX ``detect`` do.
 """
 
 from __future__ import annotations
@@ -16,10 +18,11 @@ import os
 import sys
 
 CONFIGS = ["256x320", "512x640", "lite-256x320", "lite-512x640"]
-# The backends of the JAX commands that the port has not ported, with the
-# ROADMAP item that ports each.
-UNPORTED_BACKENDS = {"native": "Native engine", "native-int8": "Native engine"}
 INT8_BACKENDS = ("int8", "int8-fused")
+# the C++ engine of cpp/ (yolofastest_torch.native), fp32 or int8 arithmetic
+NATIVE_BACKENDS = ("native", "native-int8")
+NATIVE_TTA = ("--tta runs the flip pass on device; it applies to the "
+              "jax backends (fp/int8/int8-fused), not the C++ engine")
 
 
 def add_model_args(p) -> None:
@@ -29,10 +32,12 @@ def add_model_args(p) -> None:
     p.add_argument("--weights", required=True,
                    help=".npz zoo file, reference .pth, .onnx or a port checkpoint directory")
     p.add_argument("--backend", default="fp",
-                   choices=["fp", "jax", *INT8_BACKENDS, *UNPORTED_BACKENDS],
-                   help="fp (or its alias jax); int8 = per-layer int8 weights and inputs, "
-                        "int8-fused = end-to-end int8 activations; the native backends are "
-                        "not ported yet")
+                   choices=["fp", "jax", *NATIVE_BACKENDS, *INT8_BACKENDS],
+                   help="fp (or its alias jax); native = fp32 C++ engine on the host CPU; "
+                        "native-int8 = the C++ engine with int8 VNNI arithmetic (calibrates "
+                        "on the first 8 images unless the cache or --int8-zoo gives the "
+                        "scales); int8 = per-layer int8 weights and inputs, int8-fused = "
+                        "end-to-end int8 activations")
     p.add_argument("--arch", default="fastest", choices=["fastest", "lite"],
                    help="model architecture (lite = single-head variant; "
                         "use with a lite-* config)")
@@ -56,8 +61,8 @@ def add_int8_args(p) -> None:
                    help="mixed precision for --backend int8: these folded-graph layers run "
                         "the fp kernel")
     p.add_argument("--calib-data", default=None,
-                   help="calibration image dir for the int8 backends (detect: default "
-                        "--data)")
+                   help="calibration image dir for the int8 backends and native-int8 "
+                        "(detect: default --data)")
     p.add_argument("--calibration-cache", default=None,
                    help="JSON file for int8 activation scales (default: "
                         "<weights>.calib.json)")
@@ -93,23 +98,37 @@ def check_arch_weights(variables, arch: str, path: str) -> None:
 
 
 def build_detector(args, logger=None, fold_bn: bool = True, calib_data=None, cfg=None):
-    """(config, Detector) from the model arguments, or None after a printed
-    message: a backend the port has not ported, a weights format it does not
-    read, or a misused int8 flag.  An int8 backend without ``--int8-zoo``
-    takes its scales from the calibration cache, or calibrates on the first
-    8 images of ``calib_data`` and writes the cache.  ``cfg`` defaults to
-    the arguments' config."""
+    """(config, engine) from the model arguments, or None after a printed
+    message: a weights format the port does not read, or a misused flag.
+    The engine is a :class:`~yolofastest_torch.inference.Detector`, or for
+    the native backends a :class:`~yolofastest_torch.native.NativeEngine`
+    over a ``.yfb`` staged in a temporary directory (the engine reads it
+    whole when it is made).  An int8 backend without ``--int8-zoo`` takes
+    its scales from the calibration cache, or calibrates on the first 8
+    images of ``calib_data`` and writes the cache.  ``cfg`` defaults to the
+    arguments' config."""
     from yolofastest_torch.inference import Detector
 
     backend = "fp" if args.backend == "jax" else args.backend
-    if unported_backend(backend):
-        return None
     if cfg is None:
         cfg = get_config(args)
         check_arch_config(cfg, args.arch)
     zoo8 = resolve_int8_zoo(args, backend)
     if zoo8 == "error":
         return None
+    if backend in NATIVE_BACKENDS:
+        if args.tta:
+            print(NATIVE_TTA)
+            return None
+        import tempfile
+
+        from yolofastest_torch.native import NativeEngine
+
+        with tempfile.TemporaryDirectory(prefix="yf_engine_") as td:
+            yfb = os.path.join(td, "model.yfb")
+            if not write_native_weights(args, cfg, backend, zoo8, calib_data, yfb):
+                return None
+            return cfg, NativeEngine(yfb, cfg)
     try:
         variables = load_weights(args.weights, args.arch)
     except UnportedWeights as e:
@@ -131,6 +150,66 @@ def build_detector(args, logger=None, fold_bn: bool = True, calib_data=None, cfg
                         calib_method=ck["method"], calib_percentile=ck["percentile"],
                         keep_fp=keep_fp, int8_artifact=zoo8)
     return cfg, detector
+
+
+def write_native_weights(args, cfg, backend, zoo8, calib_data, path) -> bool:
+    """Write the ``.yfb`` of a native backend to ``path`` through the calls
+    the JAX commands make: the folded ``--weights``, or for ``native-int8``
+    the int8 tree of :func:`~yolofastest_torch.quant.mixed_native_tree` with
+    its activation scales (the shipped artifact's tree and scales with
+    ``--int8-zoo``, else :func:`native_int8_scales`).  ``--keep-fp`` is
+    refused with the message of the other backends.  False after a printed
+    message."""
+    from yolofastest_torch.export import save_native_weights
+    from yolofastest_torch.models import fold_batchnorm
+    from yolofastest_torch.quant import load_int8_zoo, mixed_native_tree
+
+    if parse_keep_fp(args, backend) is None:
+        return False
+    if backend == "native-int8" and zoo8:
+        # the shipped artifact: refined weights, frozen scales, its keep-fp set
+        folded, scales, keep_fp8 = load_int8_zoo(zoo8)
+    else:
+        try:
+            folded = fold_batchnorm(load_weights(args.weights, args.arch))
+        except UnportedWeights as e:
+            print(e, file=sys.stderr)
+            return False
+        if backend == "native":
+            save_native_weights(folded, path, io_config=cfg.io)
+            return True
+        scales, keep_fp8 = native_int8_scales(args, cfg, folded, calib_data), ()
+        if scales is None:
+            return False
+    tree, nscales = mixed_native_tree(folded, scales, keep_fp8)
+    save_native_weights(tree, path, act_scales=nscales, io_config=cfg.io)
+    return True
+
+
+def native_int8_scales(args, cfg, folded, data_dir):
+    """Activation scales for the native int8 engine from the same cache file
+    as the int8 backends (one calibration serves every backend).  On a miss
+    it calibrates on the first 8 images of ``data_dir`` on ``--device`` and
+    writes the cache; returns None after a printed message."""
+    import json
+
+    from yolofastest_torch.quant import calibrate
+
+    cache = int8_cache_path(args)
+    if os.path.exists(cache):
+        with open(cache) as f:
+            return {k: float(v) for k, v in json.load(f).items()}
+    if not data_dir:
+        print("native-int8 calibration needs images: pass a data/--calib-data "
+              f"directory (or reuse an existing cache at {cache})", file=sys.stderr)
+        return None
+    cal = load_calibration(data_dir, cfg.io)
+    if cal is None:
+        return None
+    scales = calibrate(folded, [cal], arch=args.arch, device=args.device, **calib_kwargs(args))
+    with open(cache, "w") as f:
+        json.dump(scales, f, indent=1)
+    return scales
 
 
 def load_calibration(data_dir: str, io, k: int = 8):
@@ -240,16 +319,6 @@ def get_config(args):
         with open(args.config_json) as f:
             return Config.from_json(f.read())
     return preset(args.config)
-
-
-def unported_backend(backend: str) -> bool:
-    """True, after a printed message naming its ROADMAP item, for a backend
-    the port has not ported."""
-    if backend not in UNPORTED_BACKENDS:
-        return False
-    print(f"--backend {backend} is not ported yet (ROADMAP: "
-          f"'{UNPORTED_BACKENDS[backend]}')", file=sys.stderr)
-    return True
 
 
 class UnportedWeights(ValueError):

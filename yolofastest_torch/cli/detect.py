@@ -6,17 +6,22 @@ and ``--calib-data``.  As there, the trainable graph runs unless
 the chain kernel; ``--backend jax`` is the JAX package's alias for ``fp``;
 ``--backend int8|int8-fused`` runs the int8 graph (``--int8-zoo`` for the
 shipped artifact, else scales from the cache or calibrated on the first 8
-images of ``--calib-data``, by default ``--data``; ``--keep-fp``); the
-native backends exit 2.  Writes ``result_<image>`` files and
-``detect_info.log`` (reference log format) into ``--out``; ``--sliced RxC``
-detects each ``.jpg`` over an RxC grid of overlapping tiles.
+images of ``--calib-data``, by default ``--data``; ``--keep-fp``);
+``--backend native|native-int8`` writes ``model.yfb`` into ``--out`` and
+runs the C++ engine on the host CPU, one ``.jpg`` at a time (the int8 one
+with the same scales: ``--int8-zoo``, the cache, or calibration on the
+first 8 images).  Writes ``result_<image>`` files and ``detect_info.log``
+(reference log format) into ``--out``; ``--sliced RxC`` detects each
+``.jpg`` over an RxC grid of overlapping tiles.
 """
 
 from __future__ import annotations
 
 import os
 
-from yolofastest_torch.cli._common import add_model_args, build_detector
+from yolofastest_torch.cli._common import (NATIVE_BACKENDS, NATIVE_TTA, add_model_args,
+                                           build_detector, check_arch_config, get_config,
+                                           resolve_int8_zoo, write_native_weights)
 
 
 def add_detect_parser(sub) -> None:
@@ -54,6 +59,8 @@ def cmd_detect(args) -> int:
             return 2
     logger = config_logger(args.out, "detect_info.log")
     os.makedirs(args.out, exist_ok=True)
+    if args.backend in NATIVE_BACKENDS:
+        return _native_detect_dir(args, logger)
     built = build_detector(args, logger, fold_bn=args.fold_bn,
                            calib_data=args.calib_data or args.data)
     if built is None:
@@ -62,6 +69,57 @@ def cmd_detect(args) -> int:
     if grid:
         return _sliced_detect_dir(args, cfg, detector, grid, logger)
     detector.batch_detect(args.data, args.out, batch_size=args.batch)
+    return 0
+
+
+def _native_detect_dir(args, logger) -> int:
+    """detect --backend native|native-int8: ``model.yfb`` into --out, then
+    each .jpg of --data through the C++ engine, per-image times logged."""
+    import time
+
+    import cv2
+
+    from yolofastest_torch.inference.detector import image_to_net_input
+    from yolofastest_torch.native import NativeEngine
+    from yolofastest_torch.utils.visualize import CLASS_COLORS, plot_one_box
+
+    cfg = get_config(args)
+    check_arch_config(cfg, args.arch)
+    zoo8 = resolve_int8_zoo(args, args.backend)
+    if zoo8 == "error":
+        return 2
+    if args.tta:
+        print(NATIVE_TTA)
+        return 2
+    if args.sliced:
+        print("--sliced batches all tiles through one device program; "
+              "it applies to the jax backends, not the C++ engine")
+        return 2
+    yfb = os.path.join(args.out, "model.yfb")
+    if not write_native_weights(args, cfg, args.backend, zoo8, args.calib_data or args.data,
+                                yfb):
+        return 2
+    eng = NativeEngine(yfb, cfg)
+    io = cfg.io
+    names = sorted(f for f in os.listdir(args.data) if f.lower().endswith(".jpg"))
+    avg = 0.0
+    for fn in names:
+        ori = cv2.imread(os.path.join(args.data, fn))
+        img = image_to_net_input(ori, io)[..., 0]
+        t0 = time.time()
+        rows = eng.detect(img)
+        total = (time.time() - t0) * 1e3
+        avg += total
+        sh = ori.shape[0] / io.input_hw[0]
+        sw = ori.shape[1] / io.input_hw[1]
+        for x1, y1, x2, y2, conf, cls_score, cls in rows:
+            plot_one_box([x1 * sw, y1 * sh, x2 * sw, y2 * sh], ori,
+                         color=CLASS_COLORS[int(cls) % len(CLASS_COLORS)],
+                         label="%s %.2f" % (io.class_names[int(cls)], conf * cls_score),
+                         line_thickness=3)
+        cv2.imwrite(os.path.join(args.out, "result_" + fn), ori)
+        logger.info("image_name:%s -> total time:%.2fms" % (fn, total))
+    logger.info("detect avg_time: %.2fms" % (avg / max(len(names), 1)))
     return 0
 
 

@@ -6,8 +6,8 @@ through the training-loop evaluator (float boxes, the reference's
 ``validate.py`` conventions); ``--backend fp|int8|int8-fused`` scores the
 deployed pipeline, the port's :class:`~yolofastest_torch.inference.Detector`
 (the BN-folded or the int8 graph, detect-path rounding and NMS; the int8
-flags as in ``detect``).  The native backends answer with exit code 2
-(ROADMAP: 'Native engine').
+flags as in ``detect``); ``--backend native|native-int8`` scores the C++
+engine on the host CPU (per image).
 """
 
 from __future__ import annotations
@@ -15,10 +15,10 @@ from __future__ import annotations
 import json
 import sys
 
-from yolofastest_torch.cli._common import (INT8_BACKENDS, UNPORTED_BACKENDS, UnportedWeights,
+from yolofastest_torch.cli._common import (INT8_BACKENDS, NATIVE_BACKENDS, UnportedWeights,
                                            add_config_args, add_int8_args, build_detector,
                                            check_arch_config, get_config, load_weights,
-                                           make_index, unported_backend)
+                                           make_index)
 
 
 def add_eval_parser(sub) -> None:
@@ -31,7 +31,7 @@ def add_eval_parser(sub) -> None:
     e.add_argument("--val-dir", required=True)
     e.add_argument("--arch", default="fastest", choices=["fastest", "lite"])
     e.add_argument("--backend", default="train",
-                   choices=["train", "fp", "jax", *INT8_BACKENDS, *UNPORTED_BACKENDS],
+                   choices=["train", "fp", "jax", *NATIVE_BACKENDS, *INT8_BACKENDS],
                    help="train (default) = the training-loop evaluator; any other choice "
                         "scores the DEPLOYED pipeline (BN-folded or int8, detect-path NMS) "
                         "through that backend")
@@ -62,8 +62,6 @@ def cmd_eval(args) -> int:
     from yolofastest_torch.utils.logging import config_logger
 
     backend = "fp" if args.backend == "jax" else args.backend
-    if unported_backend(backend):
-        return 2
     if backend == "train" and args.tta:
         print("--tta scores the DEPLOYED pipeline; pick a deployment backend (e.g. "
               "--backend fp)", file=sys.stderr)

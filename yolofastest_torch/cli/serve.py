@@ -3,8 +3,9 @@
 The flags of ``python -m yolofastest_tpu serve|video`` plus ``--device``,
 ``--int8-zoo`` and ``--keep-fp``: ``--backend fp|jax|int8|int8-fused`` (an
 int8 backend calibrates on the first 8 images of ``--calib-data`` unless
-the cache or ``--int8-zoo`` gives its scales); the native backends exit 2
-(ROADMAP: 'Native engine').
+the cache or ``--int8-zoo`` gives its scales); ``--backend
+native|native-int8`` serves through the C++ engine on the host CPU (per
+image, capped at the config's ``max_det``; ``--tta`` refused).
 """
 
 from __future__ import annotations
@@ -58,11 +59,12 @@ def build_server(args):
 
     from yolofastest_torch.inference import DetectionServer, DynamicBatcher, make_batch_fn
 
-    batcher = DynamicBatcher(make_batch_fn(detector),
+    batcher = DynamicBatcher(make_batch_fn(detector, max_det=cfg.io.max_det),
                              cfg.io.input_hw, max_batch=args.max_batch,
                              window_ms=args.window_ms)
+    backend = getattr(detector, "backend", args.backend)  # the C++ engine: the flag's
     return DetectionServer(batcher, cfg, host=args.host, port=args.port,
-                           arch=args.arch, backend=detector.backend)
+                           arch=args.arch, backend=backend)
 
 
 def cmd_serve(args) -> int:

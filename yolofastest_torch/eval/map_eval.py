@@ -145,10 +145,11 @@ def make_backend_eval_fn(engine, max_det: int = 64):
     """Adapt a deployment engine into the ``(variables, imgs) -> detections``
     signature :class:`MAPEvaluator` consumes, so the same matching and AP
     code measures mAP through the deployed pipeline: the port's
-    :class:`~yolofastest_torch.inference.Detector` (BN-folded graph,
-    detect-path rounding and NMS), one packed result a batch.  ``variables``
-    is ignored: the engine owns its weights.  The C++ engine's branch raises
-    until ``native/`` is ported.
+    :class:`~yolofastest_torch.inference.Detector` (BN-folded or int8 graph,
+    detect-path rounding and NMS; one packed result a batch) or the C++
+    engine (:class:`~yolofastest_torch.native.NativeEngine`, per image, at
+    most ``max_det`` rows each).  ``variables`` is ignored: the engine owns
+    its weights.
     """
     if hasattr(engine, "run_packed"):
         def eval_fn(_variables, imgs):
@@ -156,8 +157,23 @@ def make_backend_eval_fn(engine, max_det: int = 64):
 
         return eval_fn
     if hasattr(engine, "detect"):
-        raise TypeError("the native C++ engine is not ported yet (ROADMAP: "
-                        "'Native engine'); score through the Detector")
+        def eval_fn(_variables, imgs):
+            imgs = np.asarray(imgs)
+            n_img = imgs.shape[0]
+            boxes = np.zeros((n_img, max_det, 4), np.float32)
+            conf = np.zeros((n_img, max_det), np.float32)
+            cls_idx = np.zeros((n_img, max_det), np.int32)
+            count = np.zeros((n_img,), np.int32)
+            for b in range(n_img):
+                rows = engine.detect(imgs[b, ..., 0], max_det=max_det)
+                for i, r in enumerate(rows):  # conf-descending (post.cpp sorts)
+                    boxes[b, i] = r[0:4]
+                    conf[b, i] = r[4]
+                    cls_idx[b, i] = int(r[6])
+                count[b] = len(rows)
+            return {"boxes": boxes, "conf": conf, "cls_idx": cls_idx, "count": count}
+
+        return eval_fn
     raise TypeError(f"cannot adapt {type(engine).__name__} to an eval_fn")
 
 

@@ -46,11 +46,13 @@ BatchFn = Callable[[np.ndarray, int], List[List[List[float]]]]
 MAX_BODY_BYTES = 32 * 1024 * 1024
 
 
-def make_batch_fn(engine: Any) -> BatchFn:
-    """Adapt the port's :class:`~yolofastest_torch.inference.Detector` (or
-    anything with ``run_packed``) to the :class:`DynamicBatcher` contract:
-    one packed fetch per batch.  The JAX package's per-image C++ engine is
-    not ported yet (ROADMAP: 'Native engine')."""
+def make_batch_fn(engine: Any, max_det: int = 64) -> BatchFn:
+    """Adapt the port's :class:`~yolofastest_torch.inference.Detector`
+    (anything with ``run_packed``: one packed fetch per batch) or a
+    :class:`~yolofastest_torch.native.NativeEngine` (the per-image C++
+    engine) to the :class:`DynamicBatcher` contract.  ``max_det`` caps the
+    native engine's detections per image (pass ``config.io.max_det`` so
+    every backend serves the same cap; the Detector has it built in)."""
     if hasattr(engine, "run_packed"):
         from yolofastest_torch.inference.detector import detections_to_lists
         from yolofastest_torch.ops import unpack_detections
@@ -61,8 +63,11 @@ def make_batch_fn(engine: Any) -> BatchFn:
 
         return batch_fn
     if hasattr(engine, "detect"):
-        raise TypeError("the native C++ engine is not ported yet (ROADMAP: "
-                        "'Native engine'); serve through the Detector")
+        def batch_fn(batch: np.ndarray, n: int) -> List[List[List[float]]]:
+            return [[list(map(float, row)) for row in engine.detect(img[..., 0], max_det=max_det)]
+                    for img in batch[:n]]
+
+        return batch_fn
     raise TypeError(f"cannot adapt {type(engine).__name__} to a batch_fn")
 
 

@@ -6,8 +6,9 @@ way of :class:`~yolofastest_torch.inference.streaming.StreamingDetector`:
 ``depth`` batches stay in flight, so upload, compute and fetch overlap, and
 frames are drawn and written in stream order.  The output is an annotated
 video at the source fps; the summary records the realtime factor (effective
-fps / source fps).  The JAX package's per-frame C++ engine branch waits for
-the native engine (ROADMAP: 'Native engine').
+fps / source fps).  The C++ engine
+(:class:`~yolofastest_torch.native.NativeEngine`) runs frame by frame on
+the host CPU, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -93,29 +94,41 @@ def _draw(frame: np.ndarray, det: Dict[str, np.ndarray], b: int, io) -> int:
     return n
 
 
+def _rows_to_det(rows) -> Dict[str, np.ndarray]:
+    """The C++ engine's rows of one frame as a one-frame detection dict."""
+    return {"boxes": np.asarray([r[0:4] for r in rows], np.float32).reshape(1, -1, 4),
+            "conf": np.asarray([[r[4] for r in rows]], np.float32),
+            "cls_score": np.asarray([[r[5] for r in rows]], np.float32),
+            "cls_idx": np.asarray([[int(r[6]) for r in rows]], np.int32),
+            "count": np.asarray([len(rows)], np.int32)}
+
+
 def detect_video(engine, config: Config, src: str, out_path: str,
                  batch_size: int = 8, depth: int = 2, tracker=None,
                  logger=None) -> Dict[str, Any]:
-    """Run the port's :class:`Detector` over a video; write the annotated
-    video.
+    """Run a deployment engine over a video; write the annotated video.
 
     Args:
       engine: a :class:`Detector` (anything with ``run_packed`` and
-        ``warmup``); its batches overlap through a ``depth``-deep
-        :class:`StreamingDetector`.
+        ``warmup``), whose batches overlap through a ``depth``-deep
+        :class:`StreamingDetector`, or a
+        :class:`~yolofastest_torch.native.NativeEngine` (per frame, up to
+        ``config.io.max_det`` detections).
       src: input video path, stream URL (RTSP/HTTP), or an integer camera
         index as int or digit-string ("0" = first camera): anything
         cv2.VideoCapture opens.
       out_path: annotated output video path (codec from the extension).
-      batch_size: frames per device dispatch.
-      depth: batches in flight before the first fetch (1 = synchronous).
+      batch_size: frames per device dispatch (frames read at a time for the
+        C++ engine).
+      depth: batches in flight before the first fetch (1 = synchronous;
+        the Detector only).
       tracker: optional :class:`~yolofastest_torch.inference.track.IoUTracker`;
         when given, frames are annotated with stable track IDs instead of
         raw detections (results come back in stream order, so the tracker
         sees a sequential stream at any depth).
 
     Returns a stats dict: frames, detections, avg_ms (per frame, steady-state
-    wall clock, after one warm-up batch), fps (effective), src_fps,
+    wall clock, after the Detector's warm-up batch), fps (effective), src_fps,
     realtime_x (fps / src_fps), out, and with a tracker, tracks (distinct IDs
     ever created).
     """
@@ -124,10 +137,8 @@ def detect_video(engine, config: Config, src: str, out_path: str,
     from yolofastest_torch.inference.streaming import StreamingDetector
 
     io = config.io
-    if not hasattr(engine, "run_packed"):
-        if hasattr(engine, "detect"):
-            raise TypeError("the native C++ engine is not ported yet (ROADMAP: "
-                            "'Native engine'); run the video through the Detector")
+    is_detector = hasattr(engine, "run_packed")
+    if not is_detector and not hasattr(engine, "detect"):
         raise TypeError(f"cannot drive {type(engine).__name__} over video")
     if isinstance(src, str) and src.isdigit():
         src = int(src)  # camera index, e.g. CLI --video 0
@@ -169,17 +180,32 @@ def detect_video(engine, config: Config, src: str, out_path: str,
             pending.append((originals, n_valid))
             yield nets
 
+    def log_batch():
+        if logger is not None:
+            logger.info("video batch done -> frames:%d" % frames_done)
+
     try:
-        engine.warmup(batch_size)  # builds the kernels outside the timed loop
-        t0 = time.time()
-        for det in StreamingDetector.over(engine, depth)(net_batches()):
-            originals, n_valid = pending.popleft()
-            for b, frame in enumerate(originals[:n_valid]):
-                det_total += emit(frame, det, b)
-            frames_done += n_valid
-            if logger is not None:
-                logger.info("video batch done -> frames:%d" % frames_done)
-        elapsed = time.time() - t0
+        if is_detector:
+            engine.warmup(batch_size)  # builds the kernels outside the timed loop
+            t0 = time.time()
+            for det in StreamingDetector.over(engine, depth)(net_batches()):
+                originals, n_valid = pending.popleft()
+                for b, frame in enumerate(originals[:n_valid]):
+                    det_total += emit(frame, det, b)
+                frames_done += n_valid
+                log_batch()
+        else:
+            t0 = None
+            for nets, originals, n_valid in iter_frame_batches(cap, io, batch_size):
+                if t0 is None:
+                    t0 = time.time()
+                for b, frame in enumerate(originals[:n_valid]):
+                    img = nets[b, ..., 0] if nets.shape[-1] == 1 else nets[b]
+                    rows = engine.detect(img, max_det=io.max_det)
+                    det_total += emit(frame, _rows_to_det(rows), 0)
+                frames_done += n_valid
+                log_batch()
+        elapsed = (time.time() - t0) if t0 is not None else 0.0
     finally:
         cap.release()
         writer.release()
