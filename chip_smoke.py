@@ -40,15 +40,24 @@ sources: fp32 at both sizes against the fp Detector on the card and timed
 beside its B=1 latency, with the host CPU's model; ``native-int8`` from the
 three shipped artifacts; ``native-int8`` calibrated on the card; ``detect``,
 ``serve``, ``video`` and ``eval`` with ``--backend native``, none of which
-launches a CUDA kernel); then the ``{"kernels": [...]}`` summary, and last
-``{"ok": true, "device": {...}}``.  Every path resets the kernel launch
+launches a CUDA kernel), parallel (data parallelism over a process group:
+two spawned gloo ranks on the one card, each with half of a global batch of
+16, float64 steps equal to one process to 1e-9, fp32 distillation steps
+with the teacher's chain launches on each rank, save and resume bit for
+bit, steps/s beside one process; a one-rank NCCL group), profile
+(``utils.profiling.trace`` around a ``run_raw`` and a train step, its
+kernel events against the launch counts, and a ``SectionTimer`` report);
+then the ``{"kernels": [...]}`` summary, and last ``{"ok": true, "device":
+{...}}``.  Every path resets the kernel launch
 counts before it runs and checks them after.
 
 Any failed check raises, so the script exits non-zero and prints no ok line;
 without a CUDA card it exits 2 at once.  It imports nothing of JAX.  The
 frames are built with numpy from ``tests/fixtures``; cv2 encodes the HTTP
 request's image, writes the synthetic video and the synthetic VOC set the
-training path reads (in a temporary directory).
+training path reads (in a temporary directory).  The parallel phase's two
+ranks are spawned processes; the script joins (or kills) both before it
+goes on.
 """
 
 from __future__ import annotations
@@ -80,6 +89,10 @@ BF16_TOL = 4 * 2.0 ** -7  # of max|y|: 4 ulp of bf16 (8 significant bits)
 # plain version's over 40 inputs (tools/torch_chain_precision.py --seeds 4);
 # a kernel that lost bits in its accumulation was 2.5-4x as far.
 FLOAT64_SLACK = 2.0
+# The parallel phase's fp32 runs: a value outside the train phase's fp32
+# rule may be at most this many times as far from one process on the card
+# as that process is from one on the CPU over the same steps.
+FP32_NOISE_SLACK = 2.0
 K1_SOURCE = "yolofastest_torch/kernels/csrc/res_chain.cu"
 NMS_SOURCE = "yolofastest_torch/kernels/csrc/nms.cu"
 # float32 operations of one IOU and its two comparisons in the NMS kernel
@@ -1333,6 +1346,342 @@ def native_path(card, counted) -> dict:
     return counts
 
 
+PARALLEL_STEPS, PARALLEL_TIMED = 3, 5
+
+
+def parallel_inputs():
+    """The parallel and profile phases' data: the 256x320 preset (a 2-step
+    warm-up floor, EMA), its zoo weights, and a global batch of 16 golden
+    frames (net input) with their golden_map targets."""
+    import dataclasses
+
+    from yolofastest_torch.configs import get_config
+    from yolofastest_torch.models import load_variables
+
+    preset = get_config("256x320")
+    cfg = dataclasses.replace(preset, train=dataclasses.replace(
+        preset.train, warmup_min_iters=2, ema_decay=0.999, ema_ramp=20))
+    zoo = load_variables(os.path.join(WEIGHTS, "yolofastest_256x320.npz"))
+    pre = np.load(os.path.join(FIXTURES, "golden_256x320.npz"))["pre_imgs"][:16]
+    x = (pre.astype(np.float32)[..., None] - 128.0) / 255.0
+    return cfg, zoo, x, np.load(os.path.join(FIXTURES, "golden_map.npz"))["targets"][:16]
+
+
+def parallel_run(trainer, x, t) -> dict:
+    """``PARALLEL_STEPS`` steps of ``trainer`` on one batch (tensors on its
+    device): the losses of each, and on the host in float64 the weights,
+    their change over the steps, Adam's first moment and the statistics."""
+    import torch
+
+    def host(v):
+        return v.detach().to("cpu", torch.float64, copy=True)
+
+    start = host(trainer.state.params)
+    losses = [{k: float(v) for k, v in trainer.step(x, t).items()}
+              for _ in range(PARALLEL_STEPS)]
+    s = trainer.state
+    return {"losses": losses, "params": host(s.params), "step": host(s.params) - start,
+            "mu": host(s.mu), "batch_stats": host(s.batch_stats)}
+
+
+def timed_steps(trainer, x, t, barrier=None) -> float:
+    """Steps per second over ``PARALLEL_TIMED`` steps after one warm step,
+    the card synchronised (and the ranks met) at both ends."""
+    import torch
+
+    trainer.step(x, t)
+    torch.cuda.synchronize()
+    if barrier:
+        barrier()
+    t0 = time.perf_counter()
+    for _ in range(PARALLEL_TIMED):
+        trainer.step(x, t)
+    torch.cuda.synchronize()
+    if barrier:
+        barrier()
+    return PARALLEL_TIMED / (time.perf_counter() - t0)
+
+
+def parallel_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One rank of the ``parallel`` phase, a spawned process on the one card
+    (gloo): the float64 run and the fp32 distillation run on its shard of
+    the global batch, the fp32 run's launches, save and resume, and its
+    steps/s; all written to ``<out_dir>/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from yolofastest_torch.kernels import LAUNCHES, reset_launch_counts
+    from yolofastest_torch.parallel import init_distributed, make_mesh, shard_batch
+    from yolofastest_torch.train import Trainer, make_teacher_fn
+
+    torch.set_num_threads(1)  # the ranks share the host's cores with this process
+    init_distributed(f"localhost:{port}", world, rank, backend="gloo")
+    mesh = make_mesh(devices=["cuda:0"])
+    cfg, zoo, x, t = parallel_inputs()
+    xs, ts = shard_batch(mesh, x, t)
+    out = {"backend": dist.get_backend(), "device": str(mesh.device), "ranks": mesh.size,
+           "local_batch": int(xs.shape[0])}
+    t64 = Trainer(cfg, mesh=mesh, batch_per_epoch=1, variables=zoo).to_float64()
+    out["float64"] = parallel_run(t64, xs.double(), ts.double())
+    teacher = make_teacher_fn(zoo, device=mesh.device)
+    t32 = Trainer(cfg, mesh=mesh, batch_per_epoch=1, variables=zoo, distill_fn=teacher)
+    reset_launch_counts()
+    out["fp32"] = parallel_run(t32, xs, ts)
+    torch.cuda.synchronize()
+    out["launches"] = dict(LAUNCHES)
+
+    path = t32.save_checkpoint(os.path.join(out_dir, "ckpt"), epoch=0)
+    fresh = Trainer(cfg, mesh=mesh, batch_per_epoch=1, seed=1, distill_fn=teacher)
+    fresh.restore_checkpoint(path)
+
+    def same():
+        return (fresh.state.step == t32.state.step
+                and all(torch.equal(getattr(t32.state, f), getattr(fresh.state, f))
+                        for f in ("params", "batch_stats", "mu", "nu", "count"))
+                and all(torch.equal(a, b) for a, b in zip(t32.state.ema, fresh.state.ema)))
+
+    out["restored_equal"] = same()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for tr in (t32, fresh):
+            tr.step(xs, ts)
+    out["resumed_step_equal"] = same()
+    out["steps_per_s"] = timed_steps(t32, xs, ts, dist.barrier)
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def parallel_path(card, counted) -> dict:
+    """The ``parallel`` phase: data parallelism over a process group on the
+    one card.  Two spawned ranks (gloo: NCCL refuses two ranks on one
+    device), each with 8 of a global batch of 16 golden frames, at full
+    width from the 256x320 zoo: 3 float64 steps equal to one process at
+    B=16 to 1e-9 a leaf; 3 fp32 steps distilling from the folded teacher (6
+    K2 launches a step on each rank), held to one process by the ``train``
+    phase's fp32 rule, or past it by that process's own distance from one
+    on the CPU (below); save from the live group and resume bit for bit (and
+    one step after); the ranks' steps/s beside one process at the same
+    global batch.  Then this process joins a one-rank NCCL group, steps
+    once and reduces once.  Returns the launch counts of each run."""
+    import multiprocessing
+    import socket
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from yolofastest_torch.parallel import init_distributed, make_mesh
+    from yolofastest_torch.train import Trainer, make_teacher_fn
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+
+    cfg, zoo, x, t = parallel_inputs()
+    xd, tgt = torch.from_numpy(x).cuda(), torch.from_numpy(t).cuda()
+    one = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="yf_parallel_") as td:
+        port = free_port()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=parallel_rank, args=(r, 2, port, td)) for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            # one process at the global batch, while the ranks start
+            t64 = Trainer(cfg, batch_per_epoch=1, variables=zoo, device="cuda").to_float64()
+            one["float64"] = parallel_run(t64, xd.double(), tgt.double())
+            t32 = Trainer(cfg, batch_per_epoch=1, variables=zoo, device="cuda",
+                          distill_fn=make_teacher_fn(zoo, device="cuda"))
+            one["fp32"], one["launches"] = counted(lambda: parallel_run(t32, xd, tgt))
+            for p in procs:
+                p.join(timeout=600)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        check(codes == [0, 0], f"parallel: rank exit codes {codes}")
+        ranks = [torch.load(os.path.join(td, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    ranks_s = time.perf_counter() - t0
+    one["steps_per_s"] = timed_steps(t32, xd, tgt)
+
+    # one process on the CPU, fp32: the reference pair of the train phase's rule
+    cpu32 = Trainer(cfg, batch_per_epoch=1, variables=zoo, device="cpu",
+                    distill_fn=make_teacher_fn(zoo, device="cpu"))
+    one["fp32_cpu"] = parallel_run(cpu32, torch.from_numpy(x), torch.from_numpy(t))
+
+    # Relative distances: each loss of each step, and per leaf (relative L2)
+    # the weights, their change and Adam's first moment, over the leaves
+    # whose float64 gradient is not zero.  float64: 1e-9.  fp32: the train
+    # phase's rule (losses 1e-4, params 1e-3 a leaf, step and mu 0.5 a
+    # leaf), which it set from one process on the card against one on the
+    # CPU over two steps (one non-zero update).  Over three steps Adam's
+    # sign-like early updates carry fp32 noise further, so a value over its
+    # tolerance passes where it is at most FP32_NOISE_SLACK times as far
+    # from one process on the card as that process is from the CPU's on the
+    # same three steps.
+    layout = t64.layouts[0]
+    mu64 = layout.views(one["float64"]["mu"])
+    total = float(np.sqrt(sum(float(v.norm()) ** 2 for v in mu64.values())))
+    kept = [n for n, v in mu64.items() if float(v.norm()) >= 1e-9 * total]
+    fp32_tol = {"loss": 1e-4, "params": 1e-3, "step": 0.5, "mu": 0.5}
+
+    def distances(a, b):
+        out = {}
+        for i, (p, q) in enumerate(zip(a["losses"], b["losses"])):
+            for k in ("total", "x", "y", "w", "h", "conf", "cls", "distill"):
+                if k in q:
+                    out[f"loss/{k}/step{i}"] = abs(p[k] - q[k]) / abs(q[k])
+        for w in ("params", "step", "mu"):
+            va, vb = layout.views(a[w]), layout.views(b[w])
+            for n in kept:
+                out[f"{w}/{n}"] = rel_l2(va[n], vb[n])
+        return out
+
+    def worst(d):
+        parts = {}
+        for key, v in d.items():
+            part = key.split("/")[0]
+            if part not in parts or v > parts[part][1]:
+                parts[part] = [key, v]
+        return parts
+
+    r0, r1 = ranks
+    versus = {}
+    for dt in ("float64", "fp32"):
+        d = distances(r0[dt], one[dt])
+        versus[dt] = {"worst": worst(d),
+                      "batch_stats_rel": rel_l2(r0[dt]["batch_stats"], one[dt]["batch_stats"]),
+                      "ranks_bit_equal": all(torch.equal(r0[dt][f], r1[dt][f])
+                                             for f in ("params", "batch_stats", "mu"))}
+    d32 = distances(r0["fp32"], one["fp32"])
+    noise = distances(one["fp32_cpu"], one["fp32"])
+    over = [[k, v, noise[k]] for k, v in d32.items() if v > fp32_tol[k.split("/")[0]]]
+    versus["fp32"].update(over_tolerance=over, card_vs_cpu_worst=worst(noise))
+    f64_ok = (versus["float64"]["batch_stats_rel"] <= 1e-9
+              and all(v <= 1e-9 for v in distances(r0["float64"], one["float64"]).values()))
+    f32_ok = all(v <= FP32_NOISE_SLACK * n for _, v, n in over)
+
+    # a one-rank NCCL group: the NCCL start, one step and one reduction
+    init_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh()
+        solo = Trainer(cfg, mesh=mesh, batch_per_epoch=1, variables=zoo)
+        loss = float(solo.step(xd[:8], tgt[:8])["total"])
+        probe = torch.ones(1, device=mesh.device)
+        dist.all_reduce(probe)
+        nccl = {"backend": dist.get_backend(), "device": str(mesh.device), "ranks": mesh.size,
+                "loss": loss, "all_reduce": float(probe)}
+    finally:
+        dist.destroy_process_group()
+
+    per_rank = [{k: r[k] for k in ("backend", "device", "ranks", "local_batch", "launches",
+                                   "restored_equal", "resumed_step_equal", "steps_per_s")}
+                for r in ranks]
+    emit("parallel", card=card, res="256x320", weights="yolofastest_256x320.npz",
+         global_batch=16, steps=PARALLEL_STEPS, kept_leaves=len(kept), ranks=per_rank,
+         one_process={"batch": 16, "launches": one["launches"],
+                      "steps_per_s": one["steps_per_s"]},
+         steps_per_s_note=f"fp32 with distillation, {PARALLEL_TIMED} steps after a warm one; "
+                          "the ranks between two barriers",
+         versus_one_process=versus,
+         tolerance="float64: losses, statistics and every kept leaf (params, step, mu) "
+                   "1e-9; fp32: losses 1e-4, params 1e-3 a leaf, step and mu 0.5 a leaf, "
+                   f"or at most {FP32_NOISE_SLACK} x one process's distance card vs CPU "
+                   "(over_tolerance: key, distance, card vs CPU); the ranks bit for bit",
+         nccl=nccl, seconds=ranks_s)
+    for r in per_rank:
+        check(r["backend"] == "gloo" and r["device"] == "cuda:0" and r["local_batch"] == 8,
+              f"parallel rank {r}")
+        check(r["launches"]["res_chain_rows"] == 6 * PARALLEL_STEPS
+              and r["launches"]["nms"] == 0 and r["launches"]["res_chain_cf"] == 0,
+              f"parallel rank launches {r['launches']}: want 6 chains a step")
+        check(r["restored_equal"] and r["resumed_step_equal"], f"parallel resume {r}")
+    check(one["launches"]["res_chain_rows"] == 6 * PARALLEL_STEPS,
+          f"one process launches {one['launches']}")
+    check(versus["float64"]["ranks_bit_equal"] and versus["fp32"]["ranks_bit_equal"],
+          f"parallel ranks differ: {versus}")
+    check(f64_ok, f"two ranks vs one process in float64: {versus['float64']}")
+    check(f32_ok, f"two ranks vs one process in fp32: {versus['fp32']}")
+    check(nccl["backend"] == "nccl" and np.isfinite(nccl["loss"]) and nccl["all_reduce"] == 1.0,
+          f"one-rank NCCL group: {nccl}")
+    return {"parallel_rank0": ranks[0]["launches"], "parallel_rank1": ranks[1]["launches"],
+            "parallel_one_process": one["launches"]}
+
+
+def profile_path(card, counted) -> dict:
+    """The ``profile`` phase: ``utils.profiling.trace`` around one B=8
+    ``run_raw`` of the fp Detector and one fp32 train step at B=8 (256x320
+    zoo, golden frames); the written Chrome trace's kernel events must
+    equal the launch counters (the chain kernel 6 times, ``nms_packed``
+    once) and hold the step's ``train_step/*`` spans; its size and
+    seconds.  Then a ``SectionTimer`` report over the Detector's
+    preprocess, forward and decode+NMS (20 calls, synchronised)."""
+    import glob
+    import tempfile
+
+    import torch
+
+    from yolofastest_torch.configs import get_config
+    from yolofastest_torch.inference import Detector
+    from yolofastest_torch.train import Trainer
+    from yolofastest_torch.utils.profiling import SectionTimer, trace
+
+    cfg, zoo, x, t = parallel_inputs()
+    det = Detector(get_config("256x320"), variables=zoo, device="cuda")
+    frames = make_frames(np.load(os.path.join(FIXTURES, "golden_256x320.npz"))["pre_imgs"][:8])
+    trainer = Trainer(cfg, batch_per_epoch=1, variables=zoo, device="cuda")
+    det.run_raw(frames)
+    trainer.step(x[:8], t[:8])
+    with tempfile.TemporaryDirectory(prefix="yf_trace_") as td:
+        def traced():
+            with trace(td):
+                det.run_raw(frames)
+                trainer.step(x[:8], t[:8])
+
+        t0 = time.perf_counter()
+        _, launches = counted(traced)
+        seconds = time.perf_counter() - t0
+        files = glob.glob(os.path.join(td, "*.pt.trace.json"))
+        check(len(files) == 1, f"trace wrote {os.listdir(td)}")
+        size = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    in_trace = {"res_chain_rows": sum("res_chain_kernel" in n for n in kernels),
+                "nms": sum("nms_packed" in n for n in kernels)}
+    spans = sorted({e["name"] for e in events if str(e.get("name", "")).startswith("train_step/")})
+
+    timer = SectionTimer()
+    for _ in range(20):
+        with timer.section("preprocess"):
+            xin = det.preprocess(frames)
+            torch.cuda.synchronize()
+        with timer.section("forward"):
+            heads = det.forward_heads(xin)
+            torch.cuda.synchronize()
+        with timer.section("decode_nms"):
+            det.postprocess(heads, packed=True)
+            torch.cuda.synchronize()
+    report = timer.report()
+    emit("profile", card=card, res="256x320", batch=8, trace_bytes=size, trace_seconds=seconds,
+         trace_events=len(events), kernel_events=len(kernels), kernels_in_trace=in_trace,
+         launches=launches, spans=spans, section_timer=report,
+         section_note="host clock around each stage with a synchronise, 20 calls at B=8")
+    check(in_trace == {"res_chain_rows": 6, "nms": 1}
+          and launches == {"res_chain_rows": 6, "nms": 1, "res_chain_cf": 0},
+          f"trace kernels {in_trace} vs launch counters {launches}")
+    want = {f"train_step/{s}" for s in ("upload", "forward", "loss", "backward", "optimizer")}
+    check(want <= set(spans), f"trace spans {spans}")
+    check(set(report) == {"preprocess", "forward", "decode_nms"}
+          and all(r["count"] == 20 for r in report.values()), f"section timer {report}")
+    return {"profile": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2056,6 +2405,12 @@ def main() -> int:
 
     # ------------------------------------------- the C++ engine (host CPU)
     native_path(card, counted)
+
+    # ------------------------------ data parallelism over a process group
+    parallel_path(card, counted)
+
+    # ------------------------------------------------ the trace and timer
+    profile_path(card, counted)
 
     # ------------------------------------------------------- kernels summary
     f32 = sums["float32/B64"]

@@ -133,6 +133,10 @@ IMPORTS_CODE = (
     "import yolofastest_torch.data.anchors, yolofastest_torch.data.txt2xml\n"
     "import yolofastest_torch.data.lmdb_reader, yolofastest_torch.cli.datatools\n"
     "import yolofastest_torch.cli.info\n"
+    "import yolofastest_torch.parallel, yolofastest_torch.parallel.distributed\n"
+    "import yolofastest_torch.parallel.mesh, yolofastest_torch.parallel.dryrun\n"
+    "import yolofastest_torch.parallel.worker, yolofastest_torch.utils.profiling\n"
+    "import yolofastest_torch.utils\n"
     "bad = [m for m in sys.modules if 'flax' in m or 'yolofastest_tpu' in m]\n"
     "print(bad)\n"
     "sys.exit(1 if bad else 0)\n")

@@ -8,6 +8,9 @@ False)`` and the ``train``/``eval`` commands.
 The JAX references that need a compile (the train step in fp32 and in
 float64, the forwards, the detector, the ``eval`` command) run in the worker
 processes of ``tests/_jax_refs.py``; the tests that read them come last.
+The data-parallel run (two gloo ranks of ``tests/_torch_ranks.py``, each
+on half of every batch) is held to the same float64 JAX run as the
+one-process run; its ranks start with the module's first test.
 
 fp32 gradients of this model are ill-conditioned per leaf: train-mode
 BatchNorm over few samples (24 a channel at stride 32) turns the rounding of
@@ -31,9 +34,11 @@ are held to being noise.
 import atexit
 import dataclasses
 import importlib
+import multiprocessing
 import os
 import re
 import shutil
+import socket
 import tempfile
 import types
 
@@ -384,6 +389,49 @@ def port_trajectories(batches, zoo):
             "ema": _port_tree(t, s.ema[0], s.ema[1])["params"]}
         out[dt] = run
     return out
+
+
+TWO_RANKS_TEST = "test_two_ranks_match_jax_float64"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_rank_processes(request, tmp_path_factory):
+    """Where the two-rank test is selected, its two gloo ranks
+    (``tests/_torch_ranks.py`` ``trajectory_rank``: float64, :func:`_sequence`
+    split 2 + 2 images, save and resume) start with the module's first
+    test and run beside the others; ``two_ranks`` waits for them."""
+    if not any(item.name == TWO_RANKS_TEST for item in request.session.items):
+        yield None
+        return
+    from tests._torch_ranks import trajectory_rank
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    td = tmp_path_factory.mktemp("two_ranks")
+    args = (_cfg().to_json(), train_inputs()["zoo"], _sequence(train_inputs()["batches"]),
+            str(td / "ckpt"))
+    outs = [str(td / f"rank{r}.pt") for r in range(2)]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=trajectory_rank, args=(r, 2, port, *args, outs[r]))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    yield procs, outs
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+
+
+@pytest.fixture(scope="module")
+def two_ranks(_two_rank_processes):
+    """Each rank's record (``trajectory_rank``), once both have exited."""
+    procs, outs = _two_rank_processes
+    for p in procs:
+        p.join(timeout=300)
+    assert [p.exitcode for p in procs] == [0, 0], [p.exitcode for p in procs]
+    return [torch.load(o, weights_only=False) for o in outs]
 
 
 def _port_tree(trainer, params, stats):
@@ -757,8 +805,46 @@ def test_float64_step_matches_jax_float64(jax_refs, port_trajectories):
     accepted steps, the step-0 gradient and, after the last step, params,
     statistics, EMA and both Adam moments, each leaf within FLOAT64_TOL
     (relative L2); the zero-gradient leaves are zero on both sides."""
-    ref = jax_refs["train/trajectory64"]
-    ours = port_trajectories[torch.float64]
+    _assert_float64_matches(jax_refs["train/trajectory64"], port_trajectories[torch.float64])
+
+
+def test_two_ranks_match_jax_float64(jax_refs, two_ranks):
+    """Data parallelism: two gloo ranks, each stepping on 2 of the 4 images
+    of every batch (the NaN image on rank 0 only), equal JAX's one-device
+    float64 run over the global batch as test_float64_step_matches_jax_float64
+    holds the one-process run (FLOAT64_TOL a leaf, all four steps); both
+    ranks skip the non-finite step, hold one state bit for bit, and the
+    state restored from rank 0's checkpoint equals the saved one bit for
+    bit, also after one more step."""
+    from tests._torch_ranks import FIELDS
+
+    r0, r1 = two_ranks
+    for f in FIELDS:
+        assert torch.equal(r0["final"][f], r1["final"][f]), f
+    assert all(torch.equal(a, b) for a, b in zip(r0["final"]["ema"], r1["final"]["ema"]))
+    trees = r0["trees"]
+    ours = {"metrics": r0["metrics"], "grad": _flat(r0["grad"]),
+            "state": {"params": _flat(trees["model"]["params"]),
+                      "batch_stats": _flat(trees["model"]["batch_stats"]),
+                      **{k: _flat(trees[k]) for k in ("mu", "nu", "ema")}}}
+    _assert_float64_matches(jax_refs["train/trajectory64"], ours)
+    for r in (r0, r1):
+        before, after, step = r["states"][1]
+        assert all(torch.equal(before[f], after[f])
+                   for f in ("params", "batch_stats", "mu", "nu", "count"))
+        assert int(after["count"]) == 1 and int(after["total_notfinite"]) == 1 and step == 2
+        assert [m["nonfinite_streak"] for m in r["metrics"]] == [0, 1, 0, 0]
+        np.testing.assert_equal(r["metrics"], r0["metrics"])  # reduced: one on every rank
+        assert r["restored_step"] == 4
+        for got, want in ((r["restored"], r["final"]), r["stepped"]):
+            for f in FIELDS:
+                assert torch.equal(got[f], want[f]), f
+            assert all(torch.equal(a, b) for a, b in zip(got["ema"], want["ema"]))
+
+
+def _assert_float64_matches(ref, ours):
+    """``ours`` (metrics of each step, the step-0 gradient and the final
+    state, flat) against JAX's float64 trajectory ``ref``."""
     for step in (0, 2, 3):
         for k in COMPONENTS:
             j, p = ref["metrics"][step][k], ours["metrics"][step][k]

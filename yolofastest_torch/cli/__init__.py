@@ -35,14 +35,15 @@ from __future__ import annotations
 
 import argparse
 
-from yolofastest_torch.cli.datatools import add_datatools_parsers
-from yolofastest_torch.cli.detect import add_detect_parser
-from yolofastest_torch.cli.evaluate import add_eval_parser
-from yolofastest_torch.cli.export import add_export_parsers
-from yolofastest_torch.cli.info import add_info_parser
-from yolofastest_torch.cli.quantize import add_quantize_parsers
-from yolofastest_torch.cli.serve import add_serve_parsers
-from yolofastest_torch.cli.train import add_train_parser
+from yolofastest_torch.cli.datatools import (add_datatools_parsers, cmd_anchors, cmd_txt2xml,
+                                             cmd_voc2coco)
+from yolofastest_torch.cli.detect import add_detect_parser, cmd_detect
+from yolofastest_torch.cli.evaluate import add_eval_parser, cmd_eval
+from yolofastest_torch.cli.export import add_export_parsers, cmd_convert, cmd_export
+from yolofastest_torch.cli.info import add_info_parser, cmd_info
+from yolofastest_torch.cli.quantize import add_quantize_parsers, cmd_prune, cmd_sensitivity
+from yolofastest_torch.cli.serve import add_serve_parsers, cmd_serve, cmd_video
+from yolofastest_torch.cli.train import add_train_parser, cmd_train
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,4 +69,20 @@ def main(argv=None) -> int:
     return args.fn(args)
 
 
-__all__ = ["build_parser", "main"]
+__all__ = [
+    "main",
+    "build_parser",
+    "cmd_anchors",
+    "cmd_convert",
+    "cmd_detect",
+    "cmd_eval",
+    "cmd_export",
+    "cmd_info",
+    "cmd_prune",
+    "cmd_sensitivity",
+    "cmd_serve",
+    "cmd_train",
+    "cmd_txt2xml",
+    "cmd_video",
+    "cmd_voc2coco",
+]

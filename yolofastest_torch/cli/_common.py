@@ -27,7 +27,9 @@ NATIVE_TTA = ("--tta runs the flip pass on device; it applies to the "
 
 def add_model_args(p) -> None:
     """``--config``, ``--config-json``, ``--weights``, ``--arch``,
-    ``--backend``, ``--tta``, ``--device`` and the int8 flags."""
+    ``--backend``, ``--device`` and the int8 flags (``detect`` and
+    ``video`` add :func:`add_tta_arg`; ``serve`` has no ``--tta``, as in
+    JAX)."""
     add_config_args(p)
     p.add_argument("--weights", required=True,
                    help=".npz zoo file, reference .pth, .onnx or a port checkpoint directory")
@@ -41,12 +43,15 @@ def add_model_args(p) -> None:
     p.add_argument("--arch", default="fastest", choices=["fastest", "lite"],
                    help="model architecture (lite = single-head variant; "
                         "use with a lite-* config)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    add_int8_args(p)
+
+
+def add_tta_arg(p) -> None:
     p.add_argument("--tta", action="store_true",
                    help="horizontal-flip test-time augmentation: the mirrored "
                         "batch rides the same forward and both candidate sets "
                         "merge into one NMS")
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    add_int8_args(p)
 
 
 def add_int8_args(p) -> None:
@@ -110,6 +115,7 @@ def build_detector(args, logger=None, fold_bn: bool = True, calib_data=None, cfg
     from yolofastest_torch.inference import Detector
 
     backend = "fp" if args.backend == "jax" else args.backend
+    tta = getattr(args, "tta", False)  # serve has no --tta
     if cfg is None:
         cfg = get_config(args)
         check_arch_config(cfg, args.arch)
@@ -117,7 +123,7 @@ def build_detector(args, logger=None, fold_bn: bool = True, calib_data=None, cfg
     if zoo8 == "error":
         return None
     if backend in NATIVE_BACKENDS:
-        if args.tta:
+        if tta:
             print(NATIVE_TTA)
             return None
         import tempfile
@@ -145,7 +151,7 @@ def build_detector(args, logger=None, fold_bn: bool = True, calib_data=None, cfg
         calibration, cache = resolved
     ck = calib_kwargs(args)
     detector = Detector(cfg, variables=variables, logger=logger, fold_bn=fold_bn,
-                        device=args.device, backend=backend, arch=args.arch, tta=args.tta,
+                        device=args.device, backend=backend, arch=args.arch, tta=tta,
                         calibration=calibration, calibration_cache=cache,
                         calib_method=ck["method"], calib_percentile=ck["percentile"],
                         keep_fp=keep_fp, int8_artifact=zoo8)
@@ -301,9 +307,11 @@ def resolve_int8_zoo(args, backend):
     return path
 
 
-def add_config_args(p) -> None:
-    """``--config`` and ``--config-json``."""
-    p.add_argument("--config", default="256x320", choices=CONFIGS)
+def add_config_args(p, choices=CONFIGS) -> None:
+    """``--config`` and ``--config-json``; ``choices=None`` takes any name
+    (``get_config`` raises ``KeyError`` for one that is not a preset), as
+    the JAX ``info`` and ``prune`` do."""
+    p.add_argument("--config", default="256x320", choices=choices)
     p.add_argument("--config-json", default=None,
                    help="Config JSON file (Config.to_json of either package); overrides "
                         "--config")

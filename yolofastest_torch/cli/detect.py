@@ -20,6 +20,7 @@ from __future__ import annotations
 import os
 
 from yolofastest_torch.cli._common import (NATIVE_BACKENDS, NATIVE_TTA, add_model_args,
+                                           add_tta_arg,
                                            build_detector, check_arch_config, get_config,
                                            resolve_int8_zoo, write_native_weights)
 
@@ -27,6 +28,7 @@ from yolofastest_torch.cli._common import (NATIVE_BACKENDS, NATIVE_TTA, add_mode
 def add_detect_parser(sub) -> None:
     d = sub.add_parser("detect", help="batch-detect a directory of images")
     add_model_args(d)
+    add_tta_arg(d)
     d.add_argument("--fold-bn", action="store_true",
                    help="run the BN-folded deployment graph (the chain kernel on the card) "
                         "instead of the trainable graph")

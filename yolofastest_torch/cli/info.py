@@ -13,7 +13,7 @@ from yolofastest_torch.cli._common import add_config_args, check_arch_config, ge
 def add_info_parser(sub) -> None:
     i = sub.add_parser("info", help="model summary: per-layer shapes, params, MACs "
                                     "(optionally the port's count of operations and bytes)")
-    add_config_args(i)
+    add_config_args(i, choices=None)
     i.add_argument("--arch", choices=["fastest", "lite"], default="fastest")
     i.add_argument("--weights", help="optional .npz/.pth/.onnx/checkpoint dir; fresh init "
                                      "when omitted (shapes need only channel counts)")

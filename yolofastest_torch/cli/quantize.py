@@ -12,9 +12,9 @@ import json
 import os
 import sys
 
-from yolofastest_torch.cli._common import (CONFIGS, UnportedWeights, add_config_args,
-                                           calib_kwargs, check_arch_config, get_config,
-                                           int8_cache_path, load_calibration, load_weights)
+from yolofastest_torch.cli._common import (UnportedWeights, add_config_args, calib_kwargs,
+                                           check_arch_config, get_config, int8_cache_path,
+                                           load_calibration, load_weights)
 
 
 def add_quantize_parsers(sub) -> None:
@@ -32,7 +32,7 @@ def add_quantize_parsers(sub) -> None:
     pr.add_argument("--round-to", type=int, default=4,
                     help="kept widths round UP to this multiple (default 4)")
     pr.add_argument("--arch", choices=["fastest", "lite"], default="fastest")
-    pr.add_argument("--config", default="256x320", choices=CONFIGS)
+    pr.add_argument("--config", default="256x320")
     pr.add_argument("--config-json")
     pr.add_argument("--out", required=True, help="output .npz path")
     pr.set_defaults(fn=cmd_prune)

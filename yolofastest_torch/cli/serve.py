@@ -5,7 +5,8 @@ The flags of ``python -m yolofastest_tpu serve|video`` plus ``--device``,
 int8 backend calibrates on the first 8 images of ``--calib-data`` unless
 the cache or ``--int8-zoo`` gives its scales); ``--backend
 native|native-int8`` serves through the C++ engine on the host CPU (per
-image, capped at the config's ``max_det``; ``--tta`` refused).
+image, capped at the config's ``max_det``; ``video --tta`` refused).  As
+in JAX, ``serve`` has no ``--tta``.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 import json
 import os
 
-from yolofastest_torch.cli._common import add_model_args, build_detector
+from yolofastest_torch.cli._common import add_model_args, add_tta_arg, build_detector
 
 
 def add_serve_parsers(sub) -> None:
@@ -32,6 +33,7 @@ def add_serve_parsers(sub) -> None:
 
     v = sub.add_parser("video", help="detect over a video file -> annotated video")
     add_model_args(v)
+    add_tta_arg(v)
     v.add_argument("--video", required=True,
                    help="input video path, stream URL, or camera index (e.g. 0)")
     v.add_argument("--out", required=True, help="output directory")

@@ -14,7 +14,11 @@ The port of ``yolofastest_tpu/losses/yolo_loss.py`` (the reference
 * means run over the full ``(B, A, H, W)`` tensor; ``loss_cls`` averages
   over positive cells only, and is 0 when there are none;
 * BCE is taken from logits, clamped where torch's ``BCELoss`` clamps its log
-  at -100, so the gradient stays finite at sigmoid saturation.
+  at -100, so the gradient stays finite at sigmoid saturation;
+* over a process group (``group``, the Trainer's data parallelism) each
+  rank's loss is its share of the global batch's: the numerators are the
+  rank's own, the denominators (the ``(B, A, H, W)`` count and ``n_pos``)
+  global, so the ranks' losses and gradients sum to the global ones.
 
 Everything is a plain differentiable function of the heads; the targets
 carry no gradient.  Heads are NHWC ``(B, H, W, A*(5+C))``, anchor-major in
@@ -28,6 +32,7 @@ import functools
 from typing import Dict, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 _LOG_CLAMP = -100.0  # torch nn.BCELoss clamps log terms at -100
@@ -171,7 +176,7 @@ def _anchor_table(anchors, stride_hw, device, dtype) -> torch.Tensor:
 
 def yolo_loss(head: torch.Tensor, targets: torch.Tensor,
               anchors: Sequence[Tuple[float, float]], input_hw: Tuple[int, int],
-              ignore_thre: float = 0.5, num_cls: int = 3
+              ignore_thre: float = 0.5, num_cls: int = 3, group=None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Loss of ONE scale: ``(total, {x, y, w, h, conf, cls})``.
 
@@ -180,6 +185,8 @@ def yolo_loss(head: torch.Tensor, targets: torch.Tensor,
       targets: (B, T, 6) padded normalised GT.
       anchors: A x (w, h) in net-input pixels for this scale.
       input_hw: network input (H, W).
+      group: a process group whose ranks hold the rest of the batch (their
+        denominators are summed), or None.
     """
     b, h, w, _ = head.shape
     na = len(anchors)
@@ -193,6 +200,11 @@ def yolo_loss(head: torch.Tensor, targets: torch.Tensor,
     mask = tgt["mask"]
     noobj = tgt["noobj_mask"]
     n_total = b * na * h * w
+    n_pos = torch.sum(mask)
+    if group is not None:
+        counts = torch.stack([n_pos.new_tensor(float(n_total)), n_pos])
+        dist.all_reduce(counts, group=group)
+        n_total, n_pos = counts[0], counts[1]
 
     loss_x = torch.sum(mask * _bce_logits(zx, tgt["tx"])) / n_total
     loss_y = torch.sum(mask * _bce_logits(zy, tgt["ty"])) / n_total
@@ -201,7 +213,6 @@ def yolo_loss(head: torch.Tensor, targets: torch.Tensor,
     loss_conf = (torch.sum(mask * _softplus_c(-z_conf)) / n_total
                  + 0.5 * torch.sum(noobj * _softplus_c(z_conf)) / n_total)
 
-    n_pos = torch.sum(mask)
     cls_sum = torch.sum(mask[..., None] * _bce_logits(z_cls, tgt["tcls"]))
     loss_cls = torch.where(n_pos > 0, cls_sum / (n_pos * num_cls + 1e-16),
                            torch.zeros_like(cls_sum))
@@ -214,13 +225,14 @@ def yolo_loss(head: torch.Tensor, targets: torch.Tensor,
 def total_loss(heads: Sequence[torch.Tensor], targets: torch.Tensor,
                anchors: Sequence[Sequence[Tuple[float, float]]], input_hw: Tuple[int, int],
                ignore_thre: float = 0.5, num_cls: int = 3,
-               branch_weight: Sequence[float] = (1.0, 1.0)
+               branch_weight: Sequence[float] = (1.0, 1.0), group=None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Sum of the per-scale losses, each weighted by ``branch_weight``."""
+    """Sum of the per-scale losses, each weighted by ``branch_weight``
+    (``group`` as :func:`yolo_loss` takes it)."""
     tot = 0.0
     comps: Dict[str, torch.Tensor] = {}
     for i, (head, anc) in enumerate(zip(heads, anchors)):
-        li, ci = yolo_loss(head, targets, anc, input_hw, ignore_thre, num_cls)
+        li, ci = yolo_loss(head, targets, anc, input_hw, ignore_thre, num_cls, group)
         tot = tot + branch_weight[i] * li
         for k, v in ci.items():
             comps[k] = comps[k] + v if k in comps else v

@@ -11,11 +11,16 @@ from yolofastest_torch.models.graph import (
     walk_topology,
     walk_topology_lite,
 )
-from yolofastest_torch.models.yolo_fastest import (YoloFastest, YoloFastestLite, build_model,
+from yolofastest_torch.models.torch_io import load_torch_checkpoint
+from yolofastest_torch.models.yolo_fastest import (BasicResBlock, ConvNormAct, Deconv2x,
+                                                   YoloFastest, YoloFastestLite, build_model,
                                                    count_params)
 from yolofastest_torch.models.zoo import load_variables, save_variables, zoo_path
 
 __all__ = [
+    "BasicResBlock",
+    "ConvNormAct",
+    "Deconv2x",
     "RES_CHAINS",
     "YoloFastest",
     "YoloFastestLite",
@@ -28,6 +33,7 @@ __all__ = [
     "fold_batchnorm",
     "folded_apply",
     "folded_apply_lite",
+    "load_torch_checkpoint",
     "load_variables",
     "save_variables",
     "torch_params_from_folded",

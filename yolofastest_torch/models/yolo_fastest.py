@@ -16,7 +16,15 @@ BatchNorm follows flax, not ``nn.BatchNorm2d``:
   moves the statistics itself and normalises with ``F.batch_norm`` on the
   batch alone (``tests/test_torch_train.py`` holds the statistics against
   flax's);
-* scale ~ N(1, 0.02), bias 0; no ``num_batches_tracked``.
+* scale ~ N(1, 0.02), bias 0; no ``num_batches_tracked``;
+* with ``group`` set (a process group of more than one rank, the Trainer's
+  data parallelism), train mode normalises with the statistics of the
+  global batch, as JAX's sharded step does: one differentiable
+  ``all_reduce`` of the channel sums of ``x - running_mean`` and their
+  squares and of the count (the shift keeps ``E[x^2] - E[x]^2`` away from
+  cancellation; it is the same on every rank), so the gradient flows
+  through the global statistics and the running statistics move alike on
+  every rank.
 
 Convolutions start Kaiming-normal with fan_in (``std = sqrt(2 / fan_in)``),
 the heads' biases at 0.  ``compute_dtype=torch.bfloat16`` is
@@ -31,6 +39,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from yolofastest_torch.parallel.mesh import all_reduce_sum
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch's convention for flax's momentum=0.9
@@ -52,11 +62,14 @@ class BatchNorm(nn.Module):
             self.weight.normal_(1.0, 0.02, generator=gen)
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.group = None  # a process group to take the batch statistics over
 
     def forward(self, x):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, BN_EPS)
+        if self.group is not None:
+            return self._global_batch_forward(x)
         with torch.no_grad():
             # the biased batch variance, reduced in fp32 (or wider) as flax reduces it
             xs = x.detach().to(torch.promote_types(x.dtype, torch.float32))
@@ -64,6 +77,24 @@ class BatchNorm(nn.Module):
             self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)
             self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, BN_EPS)
+
+    def _global_batch_forward(self, x):
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        c = xs.shape[1]
+        shift = self.running_mean.to(xs.dtype, copy=True).view(1, c, 1, 1)
+        d = xs - shift
+        count = xs.new_full((1,), xs.numel() // c)
+        sums = all_reduce_sum(torch.cat([d.sum((0, 2, 3)), (d * d).sum((0, 2, 3)), count]),
+                              self.group)
+        d_mean = sums[:c] / sums[-1]
+        mean = shift.view(c) + d_mean
+        var = torch.clamp(sums[c:2 * c] / sums[-1] - d_mean * d_mean, min=0.0)  # flax clips too
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean.detach(), alpha=BN_MOMENTUM)
+            self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var.detach(), alpha=BN_MOMENTUM)
+        scale = (torch.rsqrt(var + BN_EPS) * self.weight).view(1, c, 1, 1)
+        y = (d - d_mean.view(1, c, 1, 1)) * scale + self.bias.view(1, c, 1, 1)
+        return y.to(x.dtype)
 
 
 class ConvNormAct(nn.Module):

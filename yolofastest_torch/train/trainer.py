@@ -39,8 +39,18 @@ Checkpoints are ``<dir>/epoch_<n>/state.pt`` (``torch.save``, loaded with
 ``weights_only=True``): params, BatchNorm statistics, optimizer state, step
 and EMA by ``state_dict`` name.  The JAX package's orbax checkpoints are not
 read; the bridge between the packages is the flax-layout ``.npz``
-(:func:`yolofastest_torch.models.convert.variables_from_module`).  The mesh
-and sharding arguments of the JAX trainer are not ported.
+(:func:`yolofastest_torch.models.convert.variables_from_module`).
+
+Data parallelism (the JAX trainer's ``mesh``): each rank of a process group
+(:func:`yolofastest_torch.parallel.make_mesh`) holds the whole state, made
+equal at the start by a broadcast from rank 0, and steps on its own shard
+of the global batch.  The BatchNorm statistics are the global batch's (one
+``all_reduce`` a layer, differentiable), each rank's loss is its share of
+the global loss, and one ``all_reduce`` of the flat gradient with the loss
+components makes the update, the non-finite skip and the metrics the same
+on every rank.  Rank 0 writes the checkpoints.  With one rank there is no
+collective.  The ``spatial`` axis is not ported (``shard_spatial=True``
+refuses).
 """
 
 from __future__ import annotations
@@ -55,14 +65,17 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from yolofastest_torch.configs import Config
 from yolofastest_torch.losses import total_loss
 from yolofastest_torch.models.convert import variables_from_module
-from yolofastest_torch.models.yolo_fastest import build_model
+from yolofastest_torch.models.yolo_fastest import BatchNorm, build_model
+from yolofastest_torch.parallel import host_to_global, make_mesh, replicate
+from yolofastest_torch.parallel.mesh import NO_SPATIAL
 from yolofastest_torch.train.schedule import make_lr_schedule
-from yolofastest_torch.utils.device import exact_fp32, resolve_device
+from yolofastest_torch.utils.device import exact_fp32
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 CHECKPOINT_FILE = "state.pt"
@@ -85,7 +98,8 @@ class FlatLayout:
     def views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {n: flat[a:b].view(self.shapes[n]) for n, (a, b) in self.spans.items()}
 
-    def flatten(self, tensors: Dict[str, torch.Tensor], device) -> torch.Tensor:
+    def flatten(self, tensors: Dict[str, torch.Tensor], device,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
         missing = set(self.names) - set(tensors)
         if missing:
             raise KeyError(f"missing tensors: {sorted(missing)[:5]}")
@@ -93,7 +107,7 @@ class FlatLayout:
             if tuple(tensors[n].shape) != self.shapes[n]:
                 raise ValueError(f"{n}: shape {tuple(tensors[n].shape)}, the model's "
                                  f"{self.shapes[n]}")
-        return torch.cat([tensors[n].detach().reshape(-1).to(device, torch.float32)
+        return torch.cat([tensors[n].detach().reshape(-1).to(device, dtype)
                           for n in self.names])
 
     def unflatten(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -206,7 +220,7 @@ def _bind_model(model: torch.nn.Module, layouts: Tuple[FlatLayout, FlatLayout],
 def make_train_step(model: torch.nn.Module, config: Config, lr_schedule: Callable,
                     layouts: Tuple[FlatLayout, FlatLayout],
                     distill_fn: Optional[Callable] = None, distill_weight: float = 1.0,
-                    frozen_modules: Sequence[str] = ()) -> Callable:
+                    frozen_modules: Sequence[str] = (), group=None) -> Callable:
     """The train step ``(state, imgs, targets) -> (state, metrics)``,
     which updates ``state`` in place (the model is bound to it, see
     :func:`_bind_model`, at its first step).
@@ -218,7 +232,9 @@ def make_train_step(model: torch.nn.Module, config: Config, lr_schedule: Callabl
     ``nonfinite_streak``.  Its phases are ``torch.profiler`` spans
     (``train_step/forward``, ``/loss``, ``/backward``, ``/optimizer``; the
     upload is ``train_step/upload``), which cost nothing when no profiler
-    runs.
+    runs.  ``group``: the process group of a data-parallel step (``imgs``
+    and ``targets`` are this rank's shard; the model's BatchNorm layers take
+    the same group), or None.
     """
     from yolofastest_torch.train.distill import distill_loss
 
@@ -253,9 +269,9 @@ def make_train_step(model: torch.nn.Module, config: Config, lr_schedule: Callabl
             with record_function("train_step/loss"):
                 loss, comps = total_loss(heads, targets, io.anchors, tuple(imgs.shape[1:3]),
                                          ignore_thre=tr.iou_loss_thre, num_cls=io.num_cls,
-                                         branch_weight=tr.branch_weight)
+                                         branch_weight=tr.branch_weight, group=group)
                 if distill_fn is not None:
-                    d = distill_loss(tuple(heads), distill_fn(imgs))
+                    d = distill_loss(tuple(heads), distill_fn(imgs), group)
                     loss = loss + distill_weight * d
                     comps = dict(comps, distill=d, total=loss)
             with record_function("train_step/backward"):
@@ -268,6 +284,15 @@ def make_train_step(model: torch.nn.Module, config: Config, lr_schedule: Callabl
         grad = torch.cat([grads[n].reshape(-1) if n in grads
                           else state.params.new_zeros(b - a)
                           for n, (a, b) in p_layout.spans.items()])
+        if group is not None:
+            # the ranks' gradients and loss shares sum to the global ones
+            names = list(comps)
+            summed = torch.cat([grad, torch.stack([comps[k].detach() for k in names])
+                                .to(grad.dtype)])
+            dist.all_reduce(summed, group=group)
+            grad = summed[:grad.numel()]
+            comps = dict(zip(names, summed[grad.numel():]))
+            loss = comps["total"]
 
         grads_finite = torch.isfinite(grad).all()
         finite = grads_finite & torch.isfinite(loss.detach())
@@ -314,6 +339,9 @@ class Trainer:
 
     Args:
       config: full framework config.
+      mesh: a :func:`~yolofastest_torch.parallel.make_mesh` mesh: its ranks
+        share each step's global batch, each passing its own shard to
+        :meth:`step`.  Defaults to this process alone on ``device``.
       batch_per_epoch: steps per epoch (sets the schedule).
       variables: flax-layout numpy tree to start from; else a fresh init
         from ``seed`` (default ``train.seed``).
@@ -322,20 +350,33 @@ class Trainer:
       arch: ``"fastest"`` or ``"lite"``.
       distill_fn, distill_weight: teacher heads (:func:`make_teacher_fn`)
         and the weight of their MSE in the loss.
+      shard_spatial: split image rows over a ``spatial`` axis: refused (the
+        port has no halo exchange).
       freeze: a :func:`freeze_masks` spec.
-      device: "cuda" (the default, which needs a card) or "cpu".
+      device: "cuda" (the default, which needs a card) or "cpu", without
+        a ``mesh`` (the mesh names each rank's device).
     """
 
-    def __init__(self, config: Config, batch_per_epoch: int = 500,
+    def __init__(self, config: Config, mesh=None, batch_per_epoch: int = 500,
                  variables: Optional[Dict[str, Any]] = None, seed: Optional[int] = None,
                  logger=None, compute_dtype: torch.dtype = torch.float32,
-                 arch: str = "fastest", distill_fn: Optional[Callable] = None,
-                 distill_weight: float = 1.0, freeze: Optional[str] = None, device=None):
+                 shard_spatial: bool = False, arch: str = "fastest",
+                 distill_fn: Optional[Callable] = None, distill_weight: float = 1.0,
+                 freeze: Optional[str] = None, device=None):
+        if shard_spatial:
+            raise NotImplementedError(f"Trainer(shard_spatial=True): {NO_SPATIAL}")
         self.config = config
         self.logger = logger
         self.arch = arch
         self.batch_per_epoch = batch_per_epoch
-        self.device = resolve_device(device)
+        if mesh is None:
+            mesh = make_mesh(devices=None if device is None else [device])
+        elif device is not None:
+            raise ValueError("Trainer: pass a mesh or a device, not both (the mesh names "
+                             "the rank's device)")
+        self.mesh = mesh
+        self.device = mesh.device
+        group = mesh.reduce_group
         io, tr = config.io, config.train
         model = build_model(io.num_cls, io.num_anchors, compute_dtype, arch, variables,
                             seed=tr.seed if seed is None else seed)
@@ -347,14 +388,18 @@ class Trainer:
                 logger.info("freeze: %d modules pinned (%s)"
                             % (len(self.frozen_modules), ", ".join(self.frozen_modules)))
         self.model = model.to(self.device)
+        for m in self.model.modules():
+            if isinstance(m, BatchNorm):
+                m.group = group
         sd = self.model.state_dict()
         stat_names = {n for n, _ in self.model.named_buffers()}
         self.layouts = (FlatLayout([(n, t.shape) for n, t in sd.items() if n not in stat_names]),
                         FlatLayout([(n, t.shape) for n, t in sd.items() if n in stat_names]))
         self.lr_schedule = make_lr_schedule(tr.lr0, tr.total_epochs, batch_per_epoch,
                                             tr.warmup_min_iters)
-        params = self.layouts[0].flatten(sd, self.device)
-        stats = self.layouts[1].flatten(sd, self.device)
+        # the same start on every rank: rank 0's
+        params = host_to_global(replicate(mesh), self.layouts[0].flatten(sd, self.device))
+        stats = host_to_global(replicate(mesh), self.layouts[1].flatten(sd, self.device))
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
         self.state = TrainState(
             params=params, batch_stats=stats, mu=torch.zeros_like(params),
@@ -363,7 +408,8 @@ class Trainer:
             ema=(params.clone(), stats.clone()) if tr.ema_decay > 0 else None)
         self._seen_hw: set = set()
         self._train_step = make_train_step(self.model, config, self.lr_schedule, self.layouts,
-                                           distill_fn, distill_weight, self.frozen_modules)
+                                           distill_fn, distill_weight, self.frozen_modules,
+                                           group)
 
     # ------------------------------------------------------------------ steps
     def upload(self, a) -> torch.Tensor:
@@ -390,7 +436,8 @@ class Trainer:
         return self
 
     def step(self, imgs, targets) -> Dict[str, torch.Tensor]:
-        """One step on a host batch (numpy) or device tensors."""
+        """One step on a host batch (numpy) or device tensors: over a mesh of
+        several ranks, this rank's shard of the global batch."""
         hw = tuple(imgs.shape[1:3])
         if hw not in self._seen_hw:
             self._seen_hw.add(hw)
@@ -512,37 +559,43 @@ class Trainer:
     def save_checkpoint(self, directory: str, epoch: int,
                         max_to_keep: Optional[int] = None) -> str:
         """Write ``<directory>/epoch_<epoch>/state.pt`` (the full state); with
-        ``max_to_keep``, older ``epoch_*`` directories are removed."""
+        ``max_to_keep``, older ``epoch_*`` directories are removed.  Over a
+        mesh of several ranks (which hold one state) rank 0 writes and
+        rotates, and every rank returns once it has."""
         path = os.path.abspath(os.path.join(directory, f"epoch_{epoch}"))
-        os.makedirs(path, exist_ok=True)
-        tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
-        torch.save(self.checkpoint_state(), tmp)
-        os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
-        if max_to_keep:
-            kept = sorted((int(m.group(1)), d) for d in os.listdir(directory)
-                          if (m := re.fullmatch(r"epoch_(\d+)", d)))
-            for _, d in kept[:-max_to_keep]:
-                shutil.rmtree(os.path.join(directory, d), ignore_errors=True)
+        if self.mesh.rank == 0:
+            os.makedirs(path, exist_ok=True)
+            tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
+            torch.save(self.checkpoint_state(), tmp)
+            os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
+            if max_to_keep:
+                kept = sorted((int(m.group(1)), d) for d in os.listdir(directory)
+                              if (m := re.fullmatch(r"epoch_(\d+)", d)))
+                for _, d in kept[:-max_to_keep]:
+                    shutil.rmtree(os.path.join(directory, d), ignore_errors=True)
+        if self.mesh.reduce_group is not None:
+            dist.barrier(group=self.mesh.reduce_group)
         return path
 
     def restore_checkpoint(self, path: str) -> None:
         """Restore the full state.  EMA-elastic both ways: a checkpoint
         without EMA resumed into an EMA run seeds the average from the
-        restored weights; one with EMA resumed into a run without drops it."""
+        restored weights; one with EMA resumed into a run without drops it.
+        The vectors take the run's dtype (float64 after :meth:`to_float64`)."""
         ck = load_checkpoint(path)
         p_layout, s_layout = self.layouts
-        dev = self.device
-        params = p_layout.flatten(ck["params"], dev)
-        stats = s_layout.flatten(ck["batch_stats"], dev)
+        dev, dt = self.device, self.state.params.dtype
+        params = p_layout.flatten(ck["params"], dev, dt)
+        stats = s_layout.flatten(ck["batch_stats"], dev, dt)
         opt = ck["opt_state"]
         ema = None
         if self.state.ema is not None:
-            ema = ((p_layout.flatten(ck["ema"]["params"], dev),
-                    s_layout.flatten(ck["ema"]["batch_stats"], dev)) if ck.get("ema")
+            ema = ((p_layout.flatten(ck["ema"]["params"], dev, dt),
+                    s_layout.flatten(ck["ema"]["batch_stats"], dev, dt)) if ck.get("ema")
                    else (params.clone(), stats.clone()))
         self.state = TrainState(
             params=params, batch_stats=stats,
-            mu=p_layout.flatten(opt["mu"], dev), nu=p_layout.flatten(opt["nu"], dev),
+            mu=p_layout.flatten(opt["mu"], dev, dt), nu=p_layout.flatten(opt["nu"], dev, dt),
             count=opt["count"].to(dev, torch.int32),
             notfinite_count=opt["notfinite_count"].to(dev, torch.int32),
             total_notfinite=opt["total_notfinite"].to(dev, torch.int32),
