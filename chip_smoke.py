@@ -44,7 +44,15 @@ launches a CUDA kernel), parallel (data parallelism over a process group:
 two spawned gloo ranks on the one card, each with half of a global batch of
 16, float64 steps equal to one process to 1e-9, fp32 distillation steps
 with the teacher's chain launches on each rank, save and resume bit for
-bit, steps/s beside one process; a one-rank NCCL group), profile
+bit, steps/s beside one process; a one-rank NCCL group), spatial (the
+mesh's spatial axis: four gloo ranks on a (2, 2) mesh and two on (1, 2),
+image rows split with halo exchanges: the sharded detect pipeline at
+512x640 and 256x320 against one process and the golden boxes, with its
+chain launches and halo exchanges on each rank; the chain kernel on every
+row-shard plane against its plain version and timed beside the whole
+plane; float64 and fp32 distillation steps with ``shard_spatial=True``
+against the parallel phase's one process; the four-process dry run;
+images/s and steps/s), profile
 (``utils.profiling.trace`` around a ``run_raw`` and a train step, its
 kernel events against the launch counts, and a ``SectionTimer`` report);
 then the ``{"kernels": [...]}`` summary, and last ``{"ok": true, "device":
@@ -57,7 +65,8 @@ frames are built with numpy from ``tests/fixtures``; cv2 encodes the HTTP
 request's image, writes the synthetic video and the synthetic VOC set the
 training path reads (in a temporary directory).  The parallel phase's two
 ranks are spawned processes; the script joins (or kills) both before it
-goes on.
+goes on; so does the spatial phase with its six ranks and the dry run's
+four processes.
 """
 
 from __future__ import annotations
@@ -1347,6 +1356,34 @@ def native_path(card, counted) -> dict:
 
 
 PARALLEL_STEPS, PARALLEL_TIMED = 3, 5
+# the train phase's fp32 rule: losses, params a leaf, step and mu a leaf
+FP32_TRAIN_TOL = {"loss": 1e-4, "params": 1e-3, "step": 0.5, "mu": 0.5}
+
+
+def train_distances(a, b, layout, kept) -> dict:
+    """Relative distances of two ``parallel_run`` records: each loss of
+    each step, and per leaf (relative L2) the weights, their change and
+    Adam's first moment over the ``kept`` leaves."""
+    out = {}
+    for i, (p, q) in enumerate(zip(a["losses"], b["losses"])):
+        for k in ("total", "x", "y", "w", "h", "conf", "cls", "distill"):
+            if k in q:
+                out[f"loss/{k}/step{i}"] = abs(p[k] - q[k]) / abs(q[k])
+    for w in ("params", "step", "mu"):
+        va, vb = layout.views(a[w]), layout.views(b[w])
+        for n in kept:
+            out[f"{w}/{n}"] = rel_l2(va[n], vb[n])
+    return out
+
+
+def worst_by_part(d) -> dict:
+    """The largest distance of each part (``loss``, ``params``, ...) and its key."""
+    parts = {}
+    for key, v in d.items():
+        part = key.split("/")[0]
+        if part not in parts or v > parts[part][1]:
+            parts[part] = [key, v]
+    return parts
 
 
 def parallel_inputs():
@@ -1384,9 +1421,9 @@ def parallel_run(trainer, x, t) -> dict:
             "mu": host(s.mu), "batch_stats": host(s.batch_stats)}
 
 
-def timed_steps(trainer, x, t, barrier=None) -> float:
-    """Steps per second over ``PARALLEL_TIMED`` steps after one warm step,
-    the card synchronised (and the ranks met) at both ends."""
+def timed_steps(trainer, x, t, barrier=None, reps: int = PARALLEL_TIMED) -> float:
+    """Steps per second over ``reps`` steps after one warm step, the card
+    synchronised (and the ranks met) at both ends."""
     import torch
 
     trainer.step(x, t)
@@ -1394,12 +1431,12 @@ def timed_steps(trainer, x, t, barrier=None) -> float:
     if barrier:
         barrier()
     t0 = time.perf_counter()
-    for _ in range(PARALLEL_TIMED):
+    for _ in range(reps):
         trainer.step(x, t)
     torch.cuda.synchronize()
     if barrier:
         barrier()
-    return PARALLEL_TIMED / (time.perf_counter() - t0)
+    return reps / (time.perf_counter() - t0)
 
 
 def parallel_rank(rank: int, world: int, port: int, out_dir: str) -> None:
@@ -1528,43 +1565,9 @@ def parallel_path(card, counted) -> dict:
     mu64 = layout.views(one["float64"]["mu"])
     total = float(np.sqrt(sum(float(v.norm()) ** 2 for v in mu64.values())))
     kept = [n for n, v in mu64.items() if float(v.norm()) >= 1e-9 * total]
-    fp32_tol = {"loss": 1e-4, "params": 1e-3, "step": 0.5, "mu": 0.5}
-
-    def distances(a, b):
-        out = {}
-        for i, (p, q) in enumerate(zip(a["losses"], b["losses"])):
-            for k in ("total", "x", "y", "w", "h", "conf", "cls", "distill"):
-                if k in q:
-                    out[f"loss/{k}/step{i}"] = abs(p[k] - q[k]) / abs(q[k])
-        for w in ("params", "step", "mu"):
-            va, vb = layout.views(a[w]), layout.views(b[w])
-            for n in kept:
-                out[f"{w}/{n}"] = rel_l2(va[n], vb[n])
-        return out
-
-    def worst(d):
-        parts = {}
-        for key, v in d.items():
-            part = key.split("/")[0]
-            if part not in parts or v > parts[part][1]:
-                parts[part] = [key, v]
-        return parts
-
-    r0, r1 = ranks
-    versus = {}
-    for dt in ("float64", "fp32"):
-        d = distances(r0[dt], one[dt])
-        versus[dt] = {"worst": worst(d),
-                      "batch_stats_rel": rel_l2(r0[dt]["batch_stats"], one[dt]["batch_stats"]),
-                      "ranks_bit_equal": all(torch.equal(r0[dt][f], r1[dt][f])
-                                             for f in ("params", "batch_stats", "mu"))}
-    d32 = distances(r0["fp32"], one["fp32"])
-    noise = distances(one["fp32_cpu"], one["fp32"])
-    over = [[k, v, noise[k]] for k, v in d32.items() if v > fp32_tol[k.split("/")[0]]]
-    versus["fp32"].update(over_tolerance=over, card_vs_cpu_worst=worst(noise))
-    f64_ok = (versus["float64"]["batch_stats_rel"] <= 1e-9
-              and all(v <= 1e-9 for v in distances(r0["float64"], one["float64"]).values()))
-    f32_ok = all(v <= FP32_NOISE_SLACK * n for _, v, n in over)
+    reference = {"one": one, "layout": layout, "kept": kept,
+                 "noise": train_distances(one["fp32_cpu"], one["fp32"], layout, kept)}
+    versus, f64_ok, f32_ok = versus_one_process(ranks, reference)
 
     # a one-rank NCCL group: the NCCL start, one step and one reduction
     init_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl")
@@ -1610,7 +1613,348 @@ def parallel_path(card, counted) -> dict:
     check(nccl["backend"] == "nccl" and np.isfinite(nccl["loss"]) and nccl["all_reduce"] == 1.0,
           f"one-rank NCCL group: {nccl}")
     return {"parallel_rank0": ranks[0]["launches"], "parallel_rank1": ranks[1]["launches"],
-            "parallel_one_process": one["launches"]}
+            "parallel_one_process": one["launches"]}, reference
+
+
+def versus_one_process(ranks, reference):
+    """The ranks' float64 and fp32 ``parallel_run`` records against one
+    process's (``reference``): float64 every distance within 1e-9; fp32 by
+    the train phase's rule, or past it by at most ``FP32_NOISE_SLACK`` times
+    one process's distance card vs CPU; the ranks bit for bit.  Returns
+    (versus, float64 ok, fp32 ok)."""
+    import torch
+
+    one, layout, kept, noise = (reference[k] for k in ("one", "layout", "kept", "noise"))
+    r0 = ranks[0]
+    versus = {}
+    for dt in ("float64", "fp32"):
+        d = train_distances(r0[dt], one[dt], layout, kept)
+        versus[dt] = {"worst": worst_by_part(d),
+                      "batch_stats_rel": rel_l2(r0[dt]["batch_stats"], one[dt]["batch_stats"]),
+                      "ranks_bit_equal": all(torch.equal(r0[dt][f], r[dt][f]) for r in ranks[1:]
+                                             for f in ("params", "batch_stats", "mu"))}
+    d32 = train_distances(r0["fp32"], one["fp32"], layout, kept)
+    over = [[k, v, noise[k]] for k, v in d32.items() if v > FP32_TRAIN_TOL[k.split("/")[0]]]
+    versus["fp32"].update(over_tolerance=over, card_vs_cpu_worst=worst_by_part(noise))
+    f64_ok = (versus["float64"]["batch_stats_rel"] <= 1e-9
+              and all(v <= 1e-9 for v in train_distances(r0["float64"], one["float64"], layout,
+                                                          kept).values()))
+    f32_ok = all(v <= FP32_NOISE_SLACK * n for _, v, n in over)
+    return versus, f64_ok, f32_ok
+
+
+SPATIAL_DETECT = {4: ((2, 2), "512x640"), 2: ((1, 2), "256x320")}  # world -> mesh, res
+SPATIAL_DETECT_REPS = 5
+SPATIAL_TIMED = 2  # timed fp32 steps on the ranks (~3 s each on one card)
+
+
+def spatial_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One rank of the ``spatial`` phase, a spawned process on the one card
+    (gloo).  Four ranks make a (2, 2) mesh and two a (1, 2) mesh.  The rank
+    runs the sharded detect pipeline (``Detector(mesh=...)``) on its shard of
+    the 20 golden frames (512x640 on (2, 2), 256x320 on (1, 2)) with its
+    kernel launches, halo exchanges and the planes the chain kernel saw,
+    then its detect images/s; then the parallel phase's float64 and fp32
+    distillation runs with ``shard_spatial=True`` on its shard of the global
+    batch (the teacher on the spatial executor) and the fp32 run's launches
+    and steps/s.  All written to ``<out_dir>/w<world>r<rank>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from yolofastest_torch.configs import get_config
+    from yolofastest_torch.inference import Detector, detections_to_lists
+    from yolofastest_torch.kernels import LAUNCHES, reset_launch_counts
+    from yolofastest_torch.models import FoldedExecutor, load_variables
+    from yolofastest_torch.ops import normalize
+    from yolofastest_torch.parallel import EXCHANGES, init_distributed, make_mesh, shard_batch
+    from yolofastest_torch.train import Trainer, make_teacher_fn
+
+    torch.set_num_threads(1)  # the ranks share the host's cores with this process
+    init_distributed(f"localhost:{port}", world, rank, backend="gloo")
+    shape, res = SPATIAL_DETECT[world]
+    mesh = make_mesh(*shape, devices=["cuda:0"])
+    out = {"backend": dist.get_backend(), "device": str(mesh.device), "mesh": list(shape),
+           "place": [mesh.data_index, mesh.spatial_index]}
+
+    planes = []
+    saved = FoldedExecutor.__dict__["chain_fn"]  # the staticmethod itself
+
+    def recording_chain(x, *weights):
+        planes.append(list(x.shape))
+        return saved.__func__(x, *weights)
+
+    det = Detector(get_config(res), variables=load_variables(
+        os.path.join(WEIGHTS, f"yolofastest_{res}.npz")), mesh=mesh)
+    pre = np.load(os.path.join(FIXTURES, f"golden_{res}.npz"))["pre_imgs"]
+    x = normalize(shard_batch(mesh, torch.from_numpy(pre), spatial=True))[..., None]
+    FoldedExecutor.chain_fn = staticmethod(recording_chain)
+    reset_launch_counts()
+    EXCHANGES.clear()
+    try:
+        dets = det.run(x)
+        torch.cuda.synchronize()
+    finally:
+        FoldedExecutor.chain_fn = saved
+    out["detect"] = {"res": res, "rows": list(x.shape), "launches": dict(LAUNCHES),
+                     "exchanges": dict(EXCHANGES), "chain_planes": planes,
+                     "lists": detections_to_lists(dets),
+                     "count": dets["count"].cpu(), "boxes": dets["boxes"].cpu()}
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(SPATIAL_DETECT_REPS):
+        det.run(x)
+    torch.cuda.synchronize()
+    dist.barrier()
+    out["detect"]["images_per_s"] = SPATIAL_DETECT_REPS * len(pre) / (time.perf_counter() - t0)
+
+    cfg, zoo, x, t = parallel_inputs()
+    xs, ts = shard_batch(mesh, x, spatial=True), shard_batch(mesh, t)
+    out["local_batch"] = list(xs.shape)
+    t64 = Trainer(cfg, mesh=mesh, batch_per_epoch=1, variables=zoo,
+                  shard_spatial=True).to_float64()
+    out["float64"] = parallel_run(t64, xs.double(), ts.double())
+    teacher = make_teacher_fn(zoo, device=mesh.device, rows=mesh.rows)
+    t32 = Trainer(cfg, mesh=mesh, batch_per_epoch=1, variables=zoo, distill_fn=teacher,
+                  shard_spatial=True)
+    reset_launch_counts()
+    out["fp32"] = parallel_run(t32, xs, ts)
+    torch.cuda.synchronize()
+    out["launches"] = dict(LAUNCHES)
+    out["steps_per_s"] = timed_steps(t32, xs, ts, dist.barrier, SPATIAL_TIMED)
+    torch.save(out, os.path.join(out_dir, f"w{world}r{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def shard_plane_rows(h: int, n: int, i: int, k: int) -> int:
+    """Rows of the plane a chain of K blocks sees on spatial rank ``i`` of
+    ``n`` at a level of ``h`` rows: its own rows and up to K rows on each
+    side, clipped at the image's edges."""
+    own = h // n
+    return own + min(k, i * own) + min(k, (n - 1 - i) * own)
+
+
+def spatial_path(card, counted, reference, n_sm) -> dict:
+    """The ``spatial`` phase: the mesh's spatial axis on the one card (gloo
+    ranks, as the parallel phase).  Four ranks on (2, 2) and two on (1, 2)
+    run at once (:func:`spatial_rank`), and the dry run's four processes
+    beside them (JAX's rule: a (2, 2) mesh with ``shard_spatial=True``).
+    Checks: the sharded detect pipeline's counts equal one process's
+    Detector and its boxes within 1e-3, golden 33/33 (512x640, (2, 2)) and
+    34/34 (256x320, (1, 2)), 6 chain launches, 1 NMS, 17 halo exchanges and
+    1 gather a forward on each rank; the chain kernel on every row-shard
+    plane of these meshes and of the dry run against its plain version;
+    float64 steps equal to one process to 1e-9 and fp32 distillation steps
+    by the parallel phase's rule, with 6 chain launches a step on each rank
+    and the ranks bit for bit.  Times: the chain kernel on each shard plane
+    beside the whole plane, and the ranks' detect images/s and steps/s
+    beside one process's, as a correctness path's (gloo on one card)."""
+    import multiprocessing
+    import signal
+    import socket
+    import tempfile
+
+    import torch
+
+    from torch_timing import cuda_ms
+    from yolofastest_torch.configs import get_config
+    from yolofastest_torch.inference import Detector, detections_to_lists
+    from yolofastest_torch.kernels import res_block as rb
+    from yolofastest_torch.models import RES_CHAINS, fold_batchnorm, load_variables
+    from yolofastest_torch.ops import normalize
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+
+    t0 = time.perf_counter()
+    dryrun = subprocess.Popen([sys.executable, "-m", "yolofastest_torch.parallel.dryrun",
+                               "--processes", "4", "--device", "cuda"], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              start_new_session=True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="yf_spatial_") as td:
+            ctx = multiprocessing.get_context("spawn")
+            procs = []
+            for world in (4, 2):
+                port = free_port()
+                procs += [ctx.Process(target=spatial_rank, args=(r, world, port, td))
+                          for r in range(world)]
+            for p in procs:
+                p.start()
+            try:
+                # one process: the Detector at both sizes, while the ranks start
+                one = {}
+                for res in ("512x640", "256x320"):
+                    det = Detector(get_config(res), variables=load_variables(
+                        os.path.join(WEIGHTS, f"yolofastest_{res}.npz")), device="cuda")
+                    pre = np.load(os.path.join(FIXTURES, f"golden_{res}.npz"))["pre_imgs"]
+                    x = normalize(torch.from_numpy(pre).cuda())[..., None]
+                    dets, launches = counted(lambda: det.run(x))
+                    one[res] = {"dets": dets, "det": det, "x": x, "launches": launches}
+                for p in procs:
+                    p.join(timeout=600)
+            finally:
+                for p in procs:
+                    if p.is_alive():
+                        p.kill()
+                        p.join()
+            codes = [p.exitcode for p in procs]
+            check(codes == [0] * 6, f"spatial: rank exit codes {codes}")
+            ranks = {world: [torch.load(os.path.join(td, f"w{world}r{r}.pt"), weights_only=False)
+                             for r in range(world)] for world in (4, 2)}
+        dry_out, _ = dryrun.communicate(timeout=600)
+    finally:  # the launcher and its four workers, also when a check above failed
+        if dryrun.poll() is None:
+            os.killpg(dryrun.pid, signal.SIGKILL)
+            dryrun.wait()
+    ranks_s = time.perf_counter() - t0
+
+    # the detect pipeline: each data place's result (its first spatial rank)
+    # against one process, and the golden boxes
+    detect = {}
+    for world, rs in ranks.items():
+        (n_data, n_spatial), res = SPATIAL_DETECT[world]
+        lead = rs[::n_spatial]
+        count = torch.cat([r["detect"]["count"] for r in lead])
+        boxes = torch.cat([r["detect"]["boxes"] for r in lead])
+        ref = {k: v.cpu() for k, v in one[res]["dets"].items()}
+        box_err = max((float((boxes[i, :n] - ref["boxes"][i, :n]).abs().max())
+                       for i, n in enumerate(count.tolist()) if n), default=0.0)
+        rows = [row for r in lead for row in r["detect"]["lists"]]
+        fx = np.load(os.path.join(FIXTURES, f"golden_{res}.npz"))
+        matched, notes = golden_match(rows, fx["boxes"], fx["pre_imgs"].shape[0])
+        same = all(torch.equal(r["detect"]["count"], lead[i // n_spatial]["detect"]["count"])
+                   and torch.equal(r["detect"]["boxes"], lead[i // n_spatial]["detect"]["boxes"])
+                   for i, r in enumerate(rs))
+        det, x = one[res]["det"], one[res]["x"]
+        det.run(x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(SPATIAL_DETECT_REPS):
+            det.run(x)
+        torch.cuda.synchronize()
+        one_ips = SPATIAL_DETECT_REPS * x.shape[0] / (time.perf_counter() - t1)
+        detect[f"{n_data}x{n_spatial}"] = {
+            "res": res, "frames": int(fx["pre_imgs"].shape[0]),
+            "rank_rows": [r["detect"]["rows"] for r in rs],
+            "counts_equal": bool(torch.equal(count, ref["count"])), "max_box_err": box_err,
+            "matched": matched, "reference": int(fx["boxes"].shape[0]), "notes": notes[:5],
+            "spatial_ranks_agree": same,
+            "launches": [r["detect"]["launches"] for r in rs],
+            "exchanges": [r["detect"]["exchanges"] for r in rs],
+            "chain_planes": [r["detect"]["chain_planes"] for r in rs],
+            "images_per_s": rs[0]["detect"]["images_per_s"], "one_process_images_per_s": one_ips,
+            "one_process_launches": one[res]["launches"]}
+
+    # the chain kernel on the row-shard planes of these meshes and of the dry
+    # run (64x96, two spatial ranks), against its plain version, fp32 and
+    # bf16; timed beside the whole plane at 512x640
+    folded = {res: fold_batchnorm(load_variables(os.path.join(WEIGHTS, f"yolofastest_{res}.npz")))
+              for res in ("512x640", "256x320")}
+    rng = np.random.default_rng(7)
+    shard_checks, shard_timing = [], []
+    for res, hw, b in (("512x640", (512, 640), 10), ("256x320", (256, 320), 20),
+                       ("256x320", (64, 96), 2)):
+        for names, (h, w) in zip(RES_CHAINS, chain_planes(hw)):
+            st = [torch.from_numpy(a).cuda()
+                  for a in rb.chain_weights_from_folded(folded[res], names)]
+            k, c, inner = st[0].shape
+            for i in range(2):
+                hs = shard_plane_rows(h, 2, i, k)
+                tile = rb.pick_tile(hs, w, c, inner, k, b, n_sm, 4)
+                smem = rb.smem_bytes(hs, w, c, k, tile[0], tile[1], tile[2], 4, tile[3])
+                xin = torch.from_numpy(
+                    (rng.standard_normal((b * hs * w, c)) * 0.5).astype(np.float32)).cuda()
+                for dt in (torch.float32, torch.bfloat16):
+                    xd = xin.to(dt)
+                    got = rb.fused_res_chain_rows(xd, *st, (hs, w)).float()
+                    ref = rb.res_chain_rows_plain(xd, *st, (hs, w)).float()
+                    err = float((got - ref).abs().max())
+                    if dt == torch.float32:
+                        ok = fp32_ratio(got, ref) <= 1.0
+                        if not ok:
+                            exact = rb.res_chain_float64(xd.reshape(b, hs, w, c), *st)
+                            r_plain = fp32_ratio(ref.cpu().double(), exact.reshape(-1, c))
+                            ok = (r_plain > 1.0 and fp32_ratio(got.cpu().double(), exact.reshape(
+                                -1, c)) <= FLOAT64_SLACK * r_plain)
+                    else:
+                        ok = err <= BF16_TOL * float(ref.abs().max())
+                    shard_checks.append({"plane": [b, hs, w, c], "of": [h, w], "I": inner,
+                                         "K": k, "rank": i, "dtype": str(dt).split(".")[-1],
+                                         "tile_chunk_cluster": list(tile), "smem_bytes": smem,
+                                         "max_abs_err": err, "ok": bool(ok)})
+                if res == "512x640" and i == 0:
+                    whole = torch.from_numpy(
+                        (rng.standard_normal((b * h * w, c)) * 0.5).astype(np.float32)).cuda()
+                    shard_ms = cuda_ms(lambda: rb.fused_res_chain_rows(xin, *st, (hs, w)), 20)
+                    whole_ms = cuda_ms(lambda: rb.fused_res_chain_rows(whole, *st, (h, w)), 20)
+                    bound, by = chain_bound(b, hs, w, c, inner, k, "float32")
+                    shard_timing.append({"chain": names[0], "B": b, "shard_plane": [hs, w],
+                                         "whole_plane": [h, w], "shard_ms": shard_ms,
+                                         "whole_ms": whole_ms, "shard_bound_ms": bound,
+                                         "bound_by": by})
+    torch.cuda.synchronize()
+
+    # training: every rank against the parallel phase's one process
+    train = {}
+    for world, rs in ranks.items():
+        versus, f64_ok, f32_ok = versus_one_process([r for r in rs], reference)
+        train["x".join(map(str, SPATIAL_DETECT[world][0]))] = {
+            "local_batch": rs[0]["local_batch"], "versus_one_process": versus,
+            "float64_ok": f64_ok, "fp32_ok": f32_ok,
+            "launches": [r["launches"] for r in rs],
+            "steps_per_s": rs[0]["steps_per_s"]}
+    dry_lines = [ln for ln in dry_out.splitlines() if ln.startswith(("MP_OK", "MP_RESUME_OK"))]
+    seconds = time.perf_counter() - t0
+    emit("spatial", card=card, detect=detect, train=train,
+         one_process_steps_per_s=reference["one"]["steps_per_s"],
+         chain_shards={"checks": len(shard_checks),
+                       "failed": [c for c in shard_checks if not c["ok"]][:10],
+                       "max_abs_err": {d: max(c["max_abs_err"] for c in shard_checks
+                                              if c["dtype"] == d)
+                                       for d in ("float32", "bfloat16")},
+                       "planes": [c for c in shard_checks if c["dtype"] == "float32"],
+                       "timing": shard_timing,
+                       "timing_note": "fp32, B=10 (a data place of the (2, 2) mesh at "
+                                      "512x640), spatial rank 0's plane beside the whole plane, "
+                                      "CUDA events over 20 launches"},
+         dryrun={"processes": 4, "rc": dryrun.returncode, "lines": dry_lines},
+         tolerance="detect: counts equal, boxes 1e-3, golden by golden_match; chain: as the "
+                   "kernels phase; train: as the parallel phase",
+         seconds_ranks=ranks_s, seconds=seconds)
+    for key, d in detect.items():
+        check(d["counts_equal"] and d["max_box_err"] <= 1e-3 and d["spatial_ranks_agree"],
+              f"spatial detect {key} against one process: {d}")
+        check(d["matched"] == d["reference"] and not d["notes"],
+              f"spatial golden {key}: {d['matched']}/{d['reference']} {d['notes']}")
+        for launches, exchanges in zip(d["launches"], d["exchanges"]):
+            check(launches == {"res_chain_rows": 6, "nms": 1, "res_chain_cf": 0},
+                  f"spatial detect {key} launches {launches}: want 6 chains and 1 NMS")
+            check(exchanges == {"halo": 17, "gather": 1},
+                  f"spatial detect {key} exchanges {exchanges}")
+    check(all(c["ok"] for c in shard_checks),
+          f"chain kernel on row shards: {[c for c in shard_checks if not c['ok']][:3]}")
+    for key, tr in train.items():
+        check(tr["float64_ok"], f"spatial {key} vs one process in float64: "
+                                f"{tr['versus_one_process']['float64']}")
+        check(tr["fp32_ok"], f"spatial {key} vs one process in fp32: "
+                             f"{tr['versus_one_process']['fp32']}")
+        check(all(v["ranks_bit_equal"] for v in tr["versus_one_process"].values()),
+              f"spatial {key}: the ranks differ")
+        for launches in tr["launches"]:
+            check(launches == {"res_chain_rows": 6 * PARALLEL_STEPS, "nms": 0,
+                               "res_chain_cf": 0},
+                  f"spatial {key} train launches {launches}: want 6 chains a step")
+    dry_ok = [any(ln.startswith(f"MP_OK rank={r} backend=gloo device=cuda")
+                  and "mesh=2x2 rows=(32, 96)" in ln for ln in dry_lines)
+              and f"MP_RESUME_OK rank={r}" in dry_out for r in range(4)]
+    check(dryrun.returncode == 0 and all(dry_ok),
+          f"spatial dry run (4 processes): {dry_out[-3000:]}")
+    return {"spatial_rank0": ranks[4][0]["detect"]["launches"],
+            "shard_timing": shard_timing,
+            "shard_max_abs_err": max(c["max_abs_err"] for c in shard_checks
+                                     if c["dtype"] == "float32")}
 
 
 def profile_path(card, counted) -> dict:
@@ -2407,7 +2751,10 @@ def main() -> int:
     native_path(card, counted)
 
     # ------------------------------ data parallelism over a process group
-    parallel_path(card, counted)
+    _, train_reference = parallel_path(card, counted)
+
+    # ------------------------- the spatial axis: image rows split over ranks
+    spatial = spatial_path(card, counted, train_reference, n_sm)
 
     # ------------------------------------------------ the trace and timer
     profile_path(card, counted)
@@ -2428,6 +2775,14 @@ def main() -> int:
             "max_abs_err_bf16": worst[(key, "bfloat16")],
             "ms": ms, "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
             "bound_by": by, "library_ms": None, "at": at})
+    summary[-1].update(
+        spatial_launches_per_rank=spatial["spatial_rank0"]["res_chain_rows"],
+        spatial_max_abs_err=spatial["shard_max_abs_err"],
+        spatial_shard_ms=sum(t["shard_ms"] for t in spatial["shard_timing"]),
+        spatial_whole_ms=sum(t["whole_ms"] for t in spatial["shard_timing"]),
+        spatial_at="one forward of the (2, 2) mesh's spatial rank 0 at 512x640; ms: the six "
+                   "chains at B=10 on that rank's planes (own rows + K halo rows) beside the "
+                   "whole planes, fp32")
     nms64 = next(t for t in nms_timing if t["candidates"] == "golden_256x320" and t["B"] == 64)
     summary.append({
         "name": "nms_packed", "route": "cuda", "source": NMS_SOURCE,

@@ -7,42 +7,51 @@ they run in a pool of spawned workers, one thread each, while the port's own
 tests run in the test process.  A test module names its references when it
 is imported (:func:`register`), with the tests that read one where only
 they do.  The session fixture :func:`jax_refs` starts the pool at its first
-use and submits at once, in the order registered, every reference that a
-selected test reads (a reference of deselected tests, such as ``slow`` ones
-under ``-m 'not slow'``, is not computed); its value reads a result by name
-(waiting for it).  The pool stops when every submitted reference has been
+use and submits at once every reference that a selected test reads (a
+reference of deselected tests, such as ``slow`` ones under ``-m 'not
+slow'``, is not computed): the ``early`` ones first, then in the order of
+the first test that reads each (a reference without named readers: the
+first test of the module that registered it); its value reads a result by
+name (waiting for it).  The pool stops when every submitted reference has been
 read, or at the end of the session.  While it runs, the test process keeps
 at most 4 torch threads, so that the workers do not stall its parallel
 regions.
 
 The overlap is what keeps the port's tests inside their time budget, so the
-first port module that runs (``tests/test_torch_detector.py``) asks for the
+first port module that runs (``tests/test_torch_config.py``) asks for the
 fixture too, though it reads nothing from it: ``pytest tests/test_torch_*.py``
-took 61 s that way and 77 s with the pool started at the first module that
-reads it (on an 8-core CPU; 39 s before the training tests came).
+took 61 s with the pool started at ``tests/test_torch_detector.py`` and 77 s
+with the pool started at the first module that reads it (on an 8-core CPU;
+39 s before the training tests came).  The longest references (the JAX
+calibrations, ~18 s of a worker, and the float64 JAX Trainer, ~29 s, which
+``tests/test_torch_spatial.py`` reads before its own module runs) are
+registered ``early``: submitted first, they are ready when their readers
+come and hold up no shorter reference behind them.
 """
 
 import multiprocessing
 import os
+import sys
 
 import pytest
 import torch
 
-WORKERS = 3
+WORKERS = 4
 TEST_THREADS = 4
 
-_REGISTERED = {}  # name -> (fn, args, tests): fn(*args()) runs in a worker
+_REGISTERED = {}  # name -> (fn, args, tests, early, module): fn(*args()) runs in a worker
 _RUN = {"pool": None, "futures": {}, "results": {}, "submitted": set(), "threads": None}
 
 
-def register(name, fn, args=tuple, tests=()):
+def register(name, fn, args=tuple, tests=(), early=False):
     """Name ``fn(*args())`` as a reference; ``fn`` is a module-level function
     (the workers import it by name) and ``args`` builds its arguments in the
     test process when the pool starts.  ``tests``: the tests that read it,
     when only they do (it is computed only if one of them is selected): a
     test function's name (all its cases) or the start of a case's name
-    (``"test_f[lite"``); empty for a reference computed in every session."""
-    _REGISTERED[name] = (fn, args, tuple(tests))
+    (``"test_f[lite"``); empty for a reference computed in every session.
+    ``early``: submit it before the others (a long reference)."""
+    _REGISTERED[name] = (fn, args, tuple(tests), early, sys._getframe(1).f_globals["__name__"])
 
 
 def _reads(test: str, names) -> bool:
@@ -65,13 +74,25 @@ def _init_worker():
     os.nice(10)
 
 
-def _start(selected):
+def _start(items):
     if _RUN["pool"] is not None or _RUN["results"]:
         return
+    selected = [item.name for item in items]
+    modules = [item.module.__name__ for item in items]
+
+    def order(name):
+        _, _, tests, early, module = _REGISTERED[name]
+        if tests:
+            at = [i for i, n in enumerate(selected) if any(_reads(t, (n,)) for t in tests)]
+        else:
+            at = [i for i, m in enumerate(modules) if m == module]
+        return not early, at[0] if at else len(selected)
+
     _RUN["threads"] = torch.get_num_threads()
     torch.set_num_threads(min(_RUN["threads"], TEST_THREADS))
     _RUN["pool"] = multiprocessing.get_context("spawn").Pool(WORKERS, _init_worker)
-    for name, (fn, args, tests) in _REGISTERED.items():
+    for name in sorted(_REGISTERED, key=order):
+        fn, args, tests, _, _ = _REGISTERED[name]
         if not tests or any(_reads(t, selected) for t in tests):
             _RUN["submitted"].add(name)
             _RUN["futures"][name] = _RUN["pool"].apply_async(fn, args())
@@ -101,7 +122,7 @@ class References:
 
 @pytest.fixture(scope="session")
 def jax_refs(request):
-    _start({item.name for item in request.session.items})
+    _start(request.session.items)
     try:
         yield References()
     finally:

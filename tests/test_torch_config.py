@@ -1,12 +1,21 @@
 """The port's config (``yolofastest_torch.configs``) equals the JAX
-package's, field by field, for every preset."""
+package's, field by field, for every preset.  The first port module that
+runs, so it starts the pool of JAX references (``tests/_jax_refs.py``) and
+the multi-process checks of later modules (``tests/_background.py``),
+though it reads nothing from them."""
 
 import dataclasses
 
 import pytest
 
+from tests._background import (dryrun_two_ranks, spatial_processes,  # noqa: F401 (fixtures)
+                               two_rank_processes)
+from tests._jax_refs import jax_refs  # noqa: F401 (a fixture)
 from yolofastest_torch.configs import config as tcfg
 from yolofastest_tpu.configs import config as jcfg
+
+pytestmark = pytest.mark.usefixtures("jax_refs", "dryrun_two_ranks", "spatial_processes",
+                                     "two_rank_processes")
 
 PRESETS = ["256x320", "512x640", "lite-256x320", "lite-512x640"]
 

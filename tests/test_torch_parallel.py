@@ -7,8 +7,8 @@ JAX package's source (``ast``), the parser from
 ``yolofastest_tpu.cli.parser``, which imports no JAX.  The two-rank training
 run that equals JAX's float64 trajectory is in ``tests/test_torch_train.py``
 (``test_two_ranks_match_jax_float64``); here the two-rank dry run
-(``python -m yolofastest_torch.parallel.dryrun --device cpu``) starts with the
-module's first test and is read by the last.
+(``python -m yolofastest_torch.parallel.dryrun --device cpu``) starts some
+modules earlier (``tests/_background.py``) and is read by the last test.
 """
 
 import ast
@@ -16,8 +16,6 @@ import glob
 import importlib
 import json
 import os
-import subprocess
-import sys
 import time
 
 import numpy as np
@@ -25,6 +23,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from tests._background import dryrun_two_ranks  # noqa: F401 (a fixture)
 from yolofastest_torch.models import zoo_path
 from yolofastest_torch.parallel import (Mesh, batch_sharding, global_batch_size, host_to_global,
                                         init_distributed, make_mesh, replicate, shard_batch)
@@ -46,23 +45,6 @@ NOT_PORTED = {
     "export": {"export_detect_pipeline", "export_folded_forward", "export_int8_forward",
                "export_jax_onnx", "load_exported", "save_exported", "save_exported_mlir"},
 }
-DRYRUN_TEST = "test_dryrun_two_ranks_on_cpu"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _dryrun_process(request):
-    """The two-rank dry run, started with the module's first test where its
-    test is selected (it runs beside the others)."""
-    if not any(item.name == DRYRUN_TEST for item in request.session.items):
-        yield None
-        return
-    proc = subprocess.Popen([sys.executable, "-m", "yolofastest_torch.parallel.dryrun",
-                             "--device", "cpu"], cwd=ROOT, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
-    yield proc
-    if proc.poll() is None:
-        proc.kill()
-    proc.communicate()
 
 
 def jax_public_names(module: str):
@@ -161,9 +143,11 @@ def test_init_distributed_rules(monkeypatch):
 def test_mesh_one_rank_and_shard_batch(monkeypatch):
     """One process: a one-rank data mesh on the named device, which reduces
     over nothing; shard_batch gives the whole batch (a fake two-rank mesh:
-    rank 0's half, and an odd batch refused); the spatial axis and a data
-    axis larger than the group are refused; without a card the default
-    device raises."""
+    rank 0's half, and an odd batch refused); a mesh of more places than the
+    group's one rank is refused, on either axis; ``shard_spatial=True`` on a
+    one-axis mesh is JAX's data-only layout (the spatial axis itself is held
+    in tests/test_torch_spatial.py); without a card the default device
+    raises."""
     from yolofastest_torch.parallel.worker import tiny_config
     from yolofastest_torch.train import Trainer
 
@@ -181,13 +165,14 @@ def test_mesh_one_rank_and_shard_batch(monkeypatch):
     assert torch.equal(shard_batch(two, x), torch.from_numpy(x[:2]))
     with pytest.raises(ValueError, match="a batch of 3 does not divide over 2 ranks"):
         shard_batch(two, x[:3])
-    with pytest.raises(NotImplementedError, match="halo exchange"):
-        make_mesh(n_spatial=2, devices=["cpu"])
+    with pytest.raises(ValueError, match="n_spatial=2\\): the mesh's places are the process "
+                                         "group's 1 rank"):
+        make_mesh(n_data=1, n_spatial=2, devices=["cpu"])
     with pytest.raises(ValueError, match="1 rank"):
         make_mesh(n_data=2, devices=["cpu"])
     cfg = tiny_config()
-    with pytest.raises(NotImplementedError, match="halo exchange"):
-        Trainer(cfg, shard_spatial=True, device="cpu")
+    trainer = Trainer(cfg, shard_spatial=True, device="cpu")
+    assert not trainer.shard_spatial and trainer.mesh.axis_names == ("data",)
     with pytest.raises(ValueError, match="not both"):
         Trainer(cfg, mesh=mesh, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -223,13 +208,13 @@ def test_trace_writes_chrome_json_with_step_spans(tmp_path):
     assert {"train_step/forward", "train_step/loss", "train_step/optimizer"} <= names
 
 
-def test_dryrun_two_ranks_on_cpu(_dryrun_process):
+def test_dryrun_two_ranks_on_cpu(dryrun_two_ranks):  # noqa: F811
     """The port's multi-process dry run, two gloo ranks at 64x96 in fp32:
     two steps on their own batches with one state on both ranks, save from
     the live group and resume bit for bit (MP_OK and MP_RESUME_OK on each
     rank)."""
-    out, err = _dryrun_process.communicate(timeout=300)
-    assert _dryrun_process.returncode == 0, err[-3000:]
+    out, err = dryrun_two_ranks.communicate(timeout=300)
+    assert dryrun_two_ranks.returncode == 0, err[-3000:]
     for r in range(2):
         assert f"MP_OK rank={r} backend=gloo device=cpu" in out, out
         assert f"MP_RESUME_OK rank={r}" in out, out

@@ -181,7 +181,7 @@ def _calibrations():
 
 
 METHODS = ("amax", "mse", "percentile", "entropy")
-register("quant/calibrate", _calibrations)
+register("quant/calibrate", _calibrations, early=True)
 
 
 # ------------------------------------------------------- threshold rules

@@ -10,7 +10,8 @@ float64, the forwards, the detector, the ``eval`` command) run in the worker
 processes of ``tests/_jax_refs.py``; the tests that read them come last.
 The data-parallel run (two gloo ranks of ``tests/_torch_ranks.py``, each
 on half of every batch) is held to the same float64 JAX run as the
-one-process run; its ranks start with the module's first test.
+one-process run; ``tests/_background.py`` starts its ranks some modules
+earlier.
 
 fp32 gradients of this model are ill-conditioned per leaf: train-mode
 BatchNorm over few samples (24 a channel at stride 32) turns the rounding of
@@ -34,11 +35,9 @@ are held to being noise.
 import atexit
 import dataclasses
 import importlib
-import multiprocessing
 import os
 import re
 import shutil
-import socket
 import tempfile
 import types
 
@@ -50,6 +49,7 @@ import torch
 from jax.sharding import Mesh
 
 from chip_smoke import make_frames
+from tests._background import two_rank_processes  # noqa: F401 (a fixture)
 from tests._jax_refs import jax_refs, register  # noqa: F401 (jax_refs: a fixture)
 from tests.test_train import tiny_config
 from yolofastest_torch.configs import Config, get_config
@@ -209,10 +209,13 @@ def _sequence(batches):
     return [batches[0], (nan, batches[1][1]), batches[1], batches[2]]
 
 
-def _jax_trajectory(batches, zoo, float64=False):
+def _jax_trajectory(batches, zoo, float64=False, mesh_shape=None):
     """The JAX Trainer over :func:`_sequence` on one CPU device: metrics of
     each step, the gradient of step 0 (its Adam first moment / 0.1), and the
-    state after the last step.
+    state after the last step.  With ``mesh_shape`` ``(n_data, n_spatial)``
+    the Trainer runs over ``batches`` themselves on a ``("data",
+    "spatial")`` mesh of the first virtual devices, with
+    ``shard_spatial=True``.
 
     ``float64``: the same with x64 enabled, float64 weights, inputs and
     compute dtype.  The loss module casts to float32 by name
@@ -231,11 +234,15 @@ def _jax_trajectory(batches, zoo, float64=False):
         zoo = jax.tree.map(lambda a: np.asarray(a, dt), zoo)
     try:
         with jax.enable_x64(float64):
-            mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
+            if mesh_shape is None:
+                mesh, steps = Mesh(np.array(jax.devices()[:1]), ("data",)), _sequence(batches)
+            else:
+                devs = np.array(jax.devices()[:mesh_shape[0] * mesh_shape[1]])
+                mesh, steps = Mesh(devs.reshape(mesh_shape), ("data", "spatial")), batches
             jt = JTrainer(_jcfg(), mesh=mesh, batch_per_epoch=1, variables=zoo,
-                          compute_dtype=jnp.dtype(dt))
+                          compute_dtype=jnp.dtype(dt), shard_spatial=mesh_shape is not None)
             out = {"metrics": []}
-            for i, (imgs, tgts) in enumerate(_sequence(batches)):
+            for i, (imgs, tgts) in enumerate(steps):
                 m = jt.step(imgs.astype(dt), tgts.astype(dt))
                 out["metrics"].append({k: float(v) for k, v in m.items()})
                 adam = jt.state.opt_state.inner_state[0][0]
@@ -355,7 +362,7 @@ def _cli_eval_args():
 register("train/trajectory", _jax_trajectory,
          lambda: (train_inputs()["batches"], train_inputs()["zoo"]))
 register("train/trajectory64", _jax_trajectory,
-         lambda: (train_inputs()["batches"], train_inputs()["zoo"], True))
+         lambda: (train_inputs()["batches"], train_inputs()["zoo"], True), early=True)
 register("train/forwards", _jax_forwards, lambda: (train_inputs()["zoo"],))
 register("train/detector", _jax_detector_unfolded, lambda: (train_inputs()["zoo"],))
 register("train/teacher", _jax_teacher, lambda: (train_inputs()["zoo"],))
@@ -391,43 +398,10 @@ def port_trajectories(batches, zoo):
     return out
 
 
-TWO_RANKS_TEST = "test_two_ranks_match_jax_float64"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_rank_processes(request, tmp_path_factory):
-    """Where the two-rank test is selected, its two gloo ranks
-    (``tests/_torch_ranks.py`` ``trajectory_rank``: float64, :func:`_sequence`
-    split 2 + 2 images, save and resume) start with the module's first
-    test and run beside the others; ``two_ranks`` waits for them."""
-    if not any(item.name == TWO_RANKS_TEST for item in request.session.items):
-        yield None
-        return
-    from tests._torch_ranks import trajectory_rank
-
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    td = tmp_path_factory.mktemp("two_ranks")
-    args = (_cfg().to_json(), train_inputs()["zoo"], _sequence(train_inputs()["batches"]),
-            str(td / "ckpt"))
-    outs = [str(td / f"rank{r}.pt") for r in range(2)]
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=trajectory_rank, args=(r, 2, port, *args, outs[r]))
-             for r in range(2)]
-    for p in procs:
-        p.start()
-    yield procs, outs
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-        p.join()
-
-
 @pytest.fixture(scope="module")
-def two_ranks(_two_rank_processes):
+def two_ranks(two_rank_processes):  # noqa: F811
     """Each rank's record (``trajectory_rank``), once both have exited."""
-    procs, outs = _two_rank_processes
+    procs, outs = two_rank_processes
     for p in procs:
         p.join(timeout=300)
     assert [p.exitcode for p in procs] == [0, 0], [p.exitcode for p in procs]
@@ -842,10 +816,12 @@ def test_two_ranks_match_jax_float64(jax_refs, two_ranks):
             assert all(torch.equal(a, b) for a, b in zip(got["ema"], want["ema"]))
 
 
-def _assert_float64_matches(ref, ours):
+def _assert_float64_matches(ref, ours, steps=(0, 2, 3), skip=()):
     """``ours`` (metrics of each step, the step-0 gradient and the final
-    state, flat) against JAX's float64 trajectory ``ref``."""
-    for step in (0, 2, 3):
+    state, flat) against JAX's float64 trajectory ``ref``; the loss
+    components of the accepted ``steps``; leaves in ``skip`` are left out
+    of the gradient and the state."""
+    for step in steps:
         for k in COMPONENTS:
             j, p = ref["metrics"][step][k], ours["metrics"][step][k]
             assert abs(p - j) <= FLOAT64_TOL * abs(j), (step, k, p, j)
@@ -857,8 +833,8 @@ def _assert_float64_matches(ref, ours):
     worst = {}
     for part, theirs, mine in [("grad", ref["grad"], ours["grad"])] + [
             (p, ref["state"][p], ours["state"][p]) for p in PARTS]:
-        skip = () if part == "batch_stats" else zero
-        worst[part] = max(_rel(mine[k], theirs[k]) for k in theirs if k not in skip)
+        left_out = set(skip) | (set() if part == "batch_stats" else zero)
+        worst[part] = max(_rel(mine[k], theirs[k]) for k in theirs if k not in left_out)
     print("float64, port against JAX, worst leaf:", worst)
     assert max(worst.values()) <= FLOAT64_TOL, worst
 

@@ -17,6 +17,17 @@ done.
   preprocess on the device too.
 * :meth:`Detector.batch_detect`: directory in, annotated images out, with
   the reference's per-image timing-log format.
+
+With a ``mesh`` (:func:`yolofastest_torch.parallel.make_mesh`) the Detector
+is one rank of the sharded pipeline of JAX's ``tests/test_sharded_inference.py``:
+each rank passes its shard of the global batch (``shard_batch(mesh, x,
+spatial=True)``: its data slice and, on a ``("data", "spatial")`` mesh, its
+rows of the images), runs the folded graph on its rows over the spatial
+executor (:func:`yolofastest_torch.models.spatial_apply`, the chain kernel
+on each rank's rows plus their halos), gathers the heads' rows over
+``spatial`` (a few KB an image), and decodes and runs the NMS kernel on its
+data slice's images: every rank of a data place returns that slice's
+detections.
 """
 
 from __future__ import annotations
@@ -32,7 +43,7 @@ import torch
 
 from yolofastest_torch.configs import Config
 from yolofastest_torch.models import (fold_batchnorm, folded_apply, folded_apply_lite,
-                                      torch_params_from_folded)
+                                      spatial_apply, torch_params_from_folded)
 from yolofastest_torch.models.yolo_fastest import build_model
 from yolofastest_torch.ops import (batched_nms, decode_heads, preprocess_device,
                                    unpack_detections)
@@ -63,8 +74,9 @@ class Detector:
         run through the graph as ONE doubled batch (the six chain kernels
         launch once each, on 2B images), the mirrored candidates are
         un-mirrored, and both sets merge conf-sorted into one NMS.
-
-    Not ported yet (ROADMAP, "Modules": to port): the int8 backends.
+      mesh: a mesh of the process group this rank belongs to (module
+        docstring); the rank's device is the mesh's.  The fp backend with
+        ``fold_bn=True`` only.
     """
 
     def __init__(
@@ -84,8 +96,17 @@ class Detector:
         calib_percentile: float = 99.99,
         keep_fp: Sequence[str] = (),
         int8_artifact: Optional[str] = None,
+        mesh=None,
     ):
         int8 = backend in ("int8", "int8-fused")
+        if mesh is not None:
+            if backend != "fp" or not fold_bn:
+                raise ValueError("Detector(mesh=...) runs the fp backend's folded graph "
+                                 "(backend='fp', fold_bn=True)")
+            if device is not None:
+                raise ValueError("Detector: pass a mesh or a device, not both (the mesh "
+                                 "names the rank's device)")
+            device = mesh.device
         if int8_artifact is not None:
             if not int8:
                 raise ValueError("int8_artifact needs an int8 backend")
@@ -107,6 +128,8 @@ class Detector:
         self.config = config
         self.backend = backend
         self.tta = tta
+        self.mesh = mesh
+        self.rows = mesh.rows if mesh is not None else None
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.logger = logger
@@ -129,6 +152,10 @@ class Detector:
             self.params = torch_params_from_folded(fold_batchnorm(variables), self.device,
                                                    compute_dtype)
             self._apply = folded_apply if arch == "fastest" else folded_apply_lite
+            if self.rows is not None and self.rows.count > 1:
+                rows = self.rows
+                self._apply = lambda params, x, dtype: spatial_apply(params, x, rows, dtype,
+                                                                     arch)
         else:
             io = config.io
             self.model = build_model(io.num_cls, io.num_anchors, compute_dtype, arch,
@@ -186,10 +213,17 @@ class Detector:
                                packed=packed)
 
     def preprocess(self, bgr_batch) -> torch.Tensor:
-        """(B, H0, W0, 3) uint8 BGR -> (B, H, W, 1) net input on the device."""
+        """(B, H0, W0, 3) uint8 BGR -> (B, H, W, 1) net input on the device.
+        On a spatial mesh ``bgr_batch`` is the rank's data slice of whole
+        frames (the resize reads across rows), and the rank's rows of the
+        net input come back."""
         with torch.inference_mode():
-            return preprocess_device(self._as_input(bgr_batch, torch.uint8),
-                                     self.config.io.input_hw, self.compute_dtype)
+            x = preprocess_device(self._as_input(bgr_batch, torch.uint8),
+                                  self.config.io.input_hw, self.compute_dtype)
+            if self.rows is not None and self.rows.count > 1:
+                h = x.shape[1] // self.rows.count
+                x = x[:, self.rows.index * h:(self.rows.index + 1) * h]
+            return x
 
     def warmup(self, batch_size: int = 1) -> None:
         """Run the pipeline once at this batch size (builds the kernels on
@@ -197,7 +231,10 @@ class Detector:
         if batch_size in self._warm:
             return
         io = self.config.io
-        dummy = torch.zeros((batch_size, *io.input_hw, io.input_channels),
+        h, w = io.input_hw
+        if self.rows is not None:
+            h //= self.rows.count
+        dummy = torch.zeros((batch_size, h, w, io.input_channels),
                             dtype=torch.float32, device=self.device)
         self.run_packed(dummy).cpu()
         self._warm.add(batch_size)
@@ -245,6 +282,9 @@ class Detector:
         """
         import cv2
 
+        if self.mesh is not None:
+            raise ValueError("batch_detect reads a directory in one process; over a mesh "
+                             "each rank calls run() on its shard")
         os.makedirs(result_path, exist_ok=True)
         io = self.config.io
         names = sorted(f for f in os.listdir(data_path)

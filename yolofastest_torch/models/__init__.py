@@ -4,9 +4,11 @@ from yolofastest_torch.models.graph import (
     RES_CHAINS,
     Executor,
     FoldedExecutor,
+    SpatialExecutor,
     fold_batchnorm,
     folded_apply,
     folded_apply_lite,
+    spatial_apply,
     unfold_to_variables,
     walk_topology,
     walk_topology_lite,
@@ -30,12 +32,14 @@ __all__ = [
     "variables_from_module",
     "Executor",
     "FoldedExecutor",
+    "SpatialExecutor",
     "fold_batchnorm",
     "folded_apply",
     "folded_apply_lite",
     "load_torch_checkpoint",
     "load_variables",
     "save_variables",
+    "spatial_apply",
     "torch_params_from_folded",
     "unfold_to_variables",
     "walk_topology",

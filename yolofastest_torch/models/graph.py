@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from yolofastest_torch.kernels.res_block import fused_res_chain_nhwc
+from yolofastest_torch.parallel.halo import gather_rows, halo_rows, row_window
 from yolofastest_torch.utils.device import exact_fp32
 
 BN_EPS = 1e-5
@@ -275,10 +276,14 @@ class FoldedExecutor(Executor):
         self.dt = compute_dtype
 
     def conv(self, x, name, kernel, stride=1, depthwise=False, act=True):
+        return self._conv(x, name, stride, (kernel - 1) // 2, depthwise, act)
+
+    def _conv(self, x, name, stride, row_pad, depthwise, act):
         p = self.p["layers"][name]
         groups = x.shape[-1] if depthwise else 1
+        col_pad = (p["weight"].shape[-1] - 1) // 2
         y = F.conv2d(_nchw(x.to(self.dt)), p["weight"].to(self.dt), None, stride,
-                     (kernel - 1) // 2, 1, groups)
+                     (row_pad, col_pad), 1, groups)
         y = _nhwc(y) + p["bias"].to(self.dt)
         return torch.relu(y) if act else y
 
@@ -292,6 +297,54 @@ class FoldedExecutor(Executor):
 
     def res_chain(self, x, names):
         return self.chain_fn(x.to(self.dt), *self.p["chains"][tuple(names)])
+
+
+class SpatialExecutor(FoldedExecutor):
+    """:class:`FoldedExecutor` on a rank's rows of the images (the mesh's
+    ``spatial`` axis, :class:`~yolofastest_torch.parallel.halo.RowShard`).
+
+    A conv of kernel k > 1, strided or not, takes the rows its window needs
+    from the neighbouring ranks (:func:`~yolofastest_torch.parallel.halo.row_window`:
+    1 for 3x3, 2 for 5x5), with zero rows only at the image's true edges, and
+    gives exactly its own output rows.  1x1 convs, the heads, ``add``,
+    ``concat`` and ``deconv2x`` (kernel 2, stride 2) need no halo.  A res
+    chain of K blocks takes K rows on each side, runs the chain kernel on
+    the extended rows (the plane its kernel launch sees is those rows) and
+    keeps its own: the zero padding at a cut edge spoils one row per block's
+    3x3 depthwise, so K rows and no more.
+    """
+
+    def __init__(self, params: Dict[str, Any], rows, compute_dtype=torch.float32):
+        super().__init__(params, compute_dtype)
+        self.rows = rows
+
+    def conv(self, x, name, kernel, stride=1, depthwise=False, act=True):
+        if kernel == 1:
+            return super().conv(x, name, kernel, stride, depthwise, act)
+        return self._conv(row_window(x, kernel, stride, self.rows), name, stride, 0,
+                          depthwise, act)
+
+    def res_chain(self, x, names):
+        ext, above = halo_rows(x, len(names), len(names), self.rows)
+        return super().res_chain(ext, names)[:, above:above + x.shape[1]]
+
+
+def spatial_apply(params: Dict[str, Any], x, rows, compute_dtype=torch.float32,
+                  arch: str = "fastest") -> Tuple[Any, ...]:
+    """The folded graph on a rank's rows ``x`` (B, h, W, 1) of images split
+    over the spatial ranks of ``rows``; returns the heads of the whole
+    images (gathered over the spatial ranks, one ``all_reduce``), NHWC, as
+    :func:`folded_apply` (or, for ``arch="lite"``, :func:`folded_apply_lite`)
+    returns them on the whole images.  ``h`` must be a multiple of 32 (whole
+    rows at every stride)."""
+    if x.shape[1] % 32:
+        raise ValueError(f"spatial_apply: {x.shape[1]} rows a rank is not whole rows at "
+                         f"stride 32 ({rows.count} spatial ranks)")
+    walk = walk_topology if arch == "fastest" else walk_topology_lite
+    with exact_fp32():
+        heads = walk(x, SpatialExecutor(params, rows, compute_dtype))
+    heads = gather_rows(heads if isinstance(heads, tuple) else (heads,), rows)
+    return heads if arch == "fastest" else heads[0]
 
 
 def folded_apply(params: Dict[str, Any], x, compute_dtype=torch.float32):

@@ -18,8 +18,9 @@ BatchNorm follows flax, not ``nn.BatchNorm2d``:
   flax's);
 * scale ~ N(1, 0.02), bias 0; no ``num_batches_tracked``;
 * with ``group`` set (a process group of more than one rank, the Trainer's
-  data parallelism), train mode normalises with the statistics of the
-  global batch, as JAX's sharded step does: one differentiable
+  data parallelism, and its spatial axis, whose ranks each pass their own
+  rows), train mode normalises with the statistics of the global batch over
+  all its rows, as JAX's sharded step does: one differentiable
   ``all_reduce`` of the channel sums of ``x - running_mean`` and their
   squares and of the count (the shift keeps ``E[x^2] - E[x]^2`` away from
   cancellation; it is the same on every rank), so the gradient flows
@@ -40,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from yolofastest_torch.parallel.halo import row_window
 from yolofastest_torch.parallel.mesh import all_reduce_sum
 
 BN_EPS = 1e-5
@@ -99,7 +101,12 @@ class BatchNorm(nn.Module):
 
 class ConvNormAct(nn.Module):
     """conv (no bias) -> BatchNorm -> optional ReLU; ``depthwise`` makes the
-    conv grouped by channel (JAX ``ConvNormAct``)."""
+    conv grouped by channel (JAX ``ConvNormAct``).  With ``rows`` set (a
+    :class:`~yolofastest_torch.parallel.halo.RowShard` of several ranks, the
+    Trainer's spatial axis) the input is the rank's rows of the images, and
+    a conv of kernel k > 1 takes the rows its window needs from the other
+    ranks (:func:`~yolofastest_torch.parallel.halo.row_window`), so that it
+    gives exactly the rank's own output rows."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3, stride: int = 1,
                  depthwise: bool = False, act: bool = True,
@@ -111,9 +118,18 @@ class ConvNormAct(nn.Module):
         _kaiming_(self.conv.weight, kernel * kernel * (cin // groups), gen)
         self.bn = BatchNorm(features, gen)
         self.act = act
+        self.rows = None  # the spatial axis's RowShard, or None for whole images
 
     def forward(self, x):
-        x = self.bn(self.conv(x))
+        k = self.conv.kernel_size[0]
+        if self.rows is not None and self.rows.count > 1 and k > 1:
+            s = self.conv.stride[0]
+            x = row_window(x.permute(0, 2, 3, 1), k, s, self.rows).permute(0, 3, 1, 2)
+            x = F.conv2d(x, self.conv.weight, None, s, (0, self.conv.padding[1]), 1,
+                         self.conv.groups)
+        else:
+            x = self.conv(x)
+        x = self.bn(x)
         return torch.relu(x) if self.act else x
 
 

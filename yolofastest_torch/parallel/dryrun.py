@@ -9,9 +9,11 @@ join one process group, take two data-parallel steps on their own seeded
 batches, save from the live group and resume a fresh Trainer from the save;
 every rank must print ``MP_OK rank=<r>`` and ``MP_RESUME_OK rank=<r>``.
 On the CPU the ranks use gloo; on a card, NCCL where each rank has a card of
-its own, else gloo (NCCL refuses two ranks on one device).  JAX's dry run
-adds a ``spatial`` axis from four devices on; the port's is data-only (it
-has no ``spatial`` axis).
+its own, else gloo (NCCL refuses two ranks on one device).  As JAX's dry run
+does, from four processes on (an even number) the mesh is ``(N/2, 2)``: the
+Trainer splits the 64x96 images' rows over the ``spatial`` axis
+(``shard_spatial=True``, the row halos exchanged between the ranks);
+otherwise it is the data axis alone.
 """
 
 from __future__ import annotations

@@ -4,8 +4,12 @@
 
 The rank joins a process group of N at ``localhost:PORT``, builds the
 Trainer over the group's mesh on a 64x96 config, and takes two steps on its
-own seeded local batch (the global batch is the ranks' batches together).
-It checks that the ranks hold one state, and prints ``MP_OK rank=<r>``.
+shard of a seeded global batch (two images a data place).  The mesh follows
+JAX's multi-chip dry run (``__graft_entry__.dryrun_multichip``): from four
+ranks on, when N is even, ``(N/2, 2)`` with ``shard_spatial=True`` (each
+rank steps on its rows of its data place's images, the row halos exchanged
+over the spatial axis); otherwise the data axis alone.  It checks that the
+ranks hold one state, and prints ``MP_OK rank=<r>`` with the mesh's shape.
 Then rank 0 saves a checkpoint into CKPT_DIR (shared by the ranks), a fresh
 Trainer with another seed restores it on every rank, its state equals the
 saved one bit for bit, and it steps: ``MP_RESUME_OK rank=<r>``.
@@ -21,7 +25,7 @@ import torch
 import torch.distributed as dist
 
 from yolofastest_torch.configs import Config, IOConfig
-from yolofastest_torch.parallel import init_distributed, make_mesh, replicate
+from yolofastest_torch.parallel import init_distributed, make_mesh, replicate, shard_batch
 from yolofastest_torch.parallel.distributed import host_to_global
 from yolofastest_torch.train import Trainer
 
@@ -36,8 +40,14 @@ def tiny_config() -> Config:
     return Config(io=io)
 
 
+def mesh_shape(n: int):
+    """JAX's rule: ``(n/2, 2)`` with a spatial axis from four ranks on when
+    ``n`` is even, else ``(n, 1)``."""
+    return (n // 2, 2) if n >= 4 and n % 2 == 0 else (n, 1)
+
+
 def local_batch(cfg: Config, rank: int, per_rank: int = 2):
-    """The rank's own batch, from its rank as the seed."""
+    """A data place's batch, from its index as the seed."""
     rng = np.random.default_rng(rank)
     imgs = rng.standard_normal((per_rank, 64, 96, 1)).astype(np.float32) * 0.2
     tgts = np.zeros((per_rank, cfg.train.max_boxes, 6), np.float32)
@@ -65,13 +75,18 @@ def main(argv=None) -> int:
 
     torch.set_num_threads(1)
     init_distributed(f"localhost:{args.port}", args.n, args.rank, backend=args.backend)
-    mesh = make_mesh(devices=[args.device])
+    n_data, n_spatial = mesh_shape(args.n)
+    mesh = make_mesh(n_data, n_spatial, devices=[args.device])
     if (mesh.size, mesh.rank) != (args.n, args.rank):
         raise SystemExit(f"rank {args.rank}: mesh of {mesh.size}, place {mesh.rank}")
+    spatial = n_spatial > 1
     cfg = tiny_config()
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, ema_decay=0.9))
-    trainer = Trainer(cfg, mesh=mesh, batch_per_epoch=10, seed=args.rank)
-    imgs, tgts = local_batch(cfg, args.rank)
+    trainer = Trainer(cfg, mesh=mesh, batch_per_epoch=10, seed=args.rank,
+                      shard_spatial=spatial)
+    batches = [local_batch(cfg, d) for d in range(n_data)]
+    imgs = shard_batch(mesh, np.concatenate([b[0] for b in batches]), spatial=spatial)
+    tgts = shard_batch(mesh, np.concatenate([b[1] for b in batches]))
     trainer.step(imgs, tgts)
     m = trainer.step(imgs, tgts)
     loss = float(m["total"])
@@ -81,10 +96,12 @@ def main(argv=None) -> int:
         if not ranks_agree(mesh, getattr(trainer.state, f)):
             raise SystemExit(f"rank {args.rank}: the ranks' {f} differ")
     print(f"MP_OK rank={args.rank} backend={dist.get_backend()} device={mesh.device} "
-          f"loss={loss:.5f}", flush=True)
+          f"mesh={n_data}x{n_spatial} rows={tuple(imgs.shape[1:3])} loss={loss:.5f}",
+          flush=True)
 
     path = trainer.save_checkpoint(args.ckpt_dir, epoch=0)
-    fresh = Trainer(cfg, mesh=mesh, batch_per_epoch=10, seed=args.rank + 100)
+    fresh = Trainer(cfg, mesh=mesh, batch_per_epoch=10, seed=args.rank + 100,
+                    shard_spatial=spatial)
     fresh.restore_checkpoint(path)
     if fresh.state.step != 2:
         raise SystemExit(f"rank {args.rank}: restored step {fresh.state.step}")

@@ -8,7 +8,11 @@ BN-folded deployment graph (:func:`fold_batchnorm`, then
 heads align with the LAST ``len(student_heads)`` teacher heads: full -> full
 matches both scales, full -> lite the stride-32 head.  Over a process group
 each rank's loss is its share of the global batch's (the means' counts
-are summed over the ranks).
+are summed over the ranks).  On the mesh's spatial axis (``rows``) the
+teacher runs the spatial executor on the rank's rows
+(:func:`~yolofastest_torch.models.spatial_apply`: the chain kernel on the
+rows plus their halos, six launches a step on each rank) and returns the
+heads of the whole images, as the student's are gathered.
 """
 
 from __future__ import annotations
@@ -19,23 +23,29 @@ import torch
 import torch.distributed as dist
 
 from yolofastest_torch.models import (fold_batchnorm, folded_apply, folded_apply_lite,
-                                      torch_params_from_folded)
+                                      spatial_apply, torch_params_from_folded)
 from yolofastest_torch.utils.device import resolve_device
 
 _APPLY = {"fastest": folded_apply, "lite": folded_apply_lite}
 
 
 def make_teacher_fn(variables: Dict[str, Any], arch: str = "fastest",
-                    compute_dtype: torch.dtype = torch.float32,
-                    device=None) -> Callable[[torch.Tensor], Tuple[torch.Tensor, ...]]:
+                    compute_dtype: torch.dtype = torch.float32, device=None,
+                    rows=None) -> Callable[[torch.Tensor], Tuple[torch.Tensor, ...]]:
     """Frozen-teacher forward: (B, H, W, 1) images -> the tuple of head
     logits.  ``variables`` is a raw checkpoint tree; BatchNorm is folded
-    once here.  ``device`` as the entry points take it ("cuda" by default)."""
+    once here.  ``device`` as the entry points take it ("cuda" by default).
+    ``rows``: the spatial axis's ``mesh.rows`` of a spatial Trainer (the
+    teacher then takes the rank's rows and returns whole-image heads), or
+    None for whole images."""
     if arch not in _APPLY:
         raise ValueError(f"unknown teacher arch {arch!r}")
     params = torch_params_from_folded(fold_batchnorm(variables), resolve_device(device),
                                       compute_dtype)
     apply_fn = _APPLY[arch]
+    if rows is not None and rows.count > 1:
+        def apply_fn(params, imgs, dtype):
+            return spatial_apply(params, imgs, rows, dtype, arch)
 
     def teacher(imgs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         with torch.no_grad():

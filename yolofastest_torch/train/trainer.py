@@ -49,8 +49,26 @@ of the global batch.  The BatchNorm statistics are the global batch's (one
 the global loss, and one ``all_reduce`` of the flat gradient with the loss
 components makes the update, the non-finite skip and the metrics the same
 on every rank.  Rank 0 writes the checkpoints.  With one rank there is no
-collective.  The ``spatial`` axis is not ported (``shard_spatial=True``
-refuses).
+collective.
+
+The ``spatial`` axis (JAX's ``shard_spatial=True`` on a ``("data",
+"spatial")`` mesh, where GSPMD splits the image rows and adds the halo
+exchanges): each rank steps on its rows of its data shard's images (what
+``shard_batch(mesh, imgs, spatial=True)`` gives it) and the targets of the
+whole images.  Every conv of kernel > 1 takes its window's rows from the
+other spatial ranks (:mod:`yolofastest_torch.parallel.halo`; its backward
+returns each halo row's gradient to the row's owner), BatchNorm sums its
+own rows and reduces over every rank of the mesh, so it normalises with the
+global batch's statistics over all rows.  The heads' rows are gathered over
+``spatial`` (one ``all_reduce``; the backward keeps a rank's own rows), and
+the loss is the data shard's, its denominators reduced over ``data``: every
+spatial rank of a data place computes the same loss, and its first rank
+alone adds the loss components into the reduction.  The one ``all_reduce``
+of the gradient spans every rank, which sums each rank's part of the
+global gradient.  An image height that ``32 * n_spatial`` does not divide is
+refused, at the step and, for the multi-scale buckets, at construction.  On
+a two-axis mesh without ``shard_spatial`` the spatial ranks of a data place
+hold the same images and step alike (JAX's replicated layout).
 """
 
 from __future__ import annotations
@@ -69,11 +87,13 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 from yolofastest_torch.configs import Config
+from yolofastest_torch.data.pipeline import multiscale_buckets
 from yolofastest_torch.losses import total_loss
 from yolofastest_torch.models.convert import variables_from_module
-from yolofastest_torch.models.yolo_fastest import BatchNorm, build_model
+from yolofastest_torch.models.yolo_fastest import BatchNorm, ConvNormAct, build_model
 from yolofastest_torch.parallel import host_to_global, make_mesh, replicate
-from yolofastest_torch.parallel.mesh import NO_SPATIAL
+from yolofastest_torch.parallel.halo import gather_rows
+from yolofastest_torch.parallel.mesh import check_image_rows
 from yolofastest_torch.train.schedule import make_lr_schedule
 from yolofastest_torch.utils.device import exact_fp32
 
@@ -220,7 +240,8 @@ def _bind_model(model: torch.nn.Module, layouts: Tuple[FlatLayout, FlatLayout],
 def make_train_step(model: torch.nn.Module, config: Config, lr_schedule: Callable,
                     layouts: Tuple[FlatLayout, FlatLayout],
                     distill_fn: Optional[Callable] = None, distill_weight: float = 1.0,
-                    frozen_modules: Sequence[str] = (), group=None) -> Callable:
+                    frozen_modules: Sequence[str] = (), group=None, rows=None,
+                    loss_group=None) -> Callable:
     """The train step ``(state, imgs, targets) -> (state, metrics)``,
     which updates ``state`` in place (the model is bound to it, see
     :func:`_bind_model`, at its first step).
@@ -234,7 +255,11 @@ def make_train_step(model: torch.nn.Module, config: Config, lr_schedule: Callabl
     upload is ``train_step/upload``), which cost nothing when no profiler
     runs.  ``group``: the process group of a data-parallel step (``imgs``
     and ``targets`` are this rank's shard; the model's BatchNorm layers take
-    the same group), or None.
+    the same group), or None.  ``rows``: the spatial axis's
+    :class:`~yolofastest_torch.parallel.halo.RowShard` of a spatial step
+    (``imgs`` are the rank's rows, the model's convs take the same rows; the
+    heads are gathered and the loss denominators reduced over
+    ``loss_group``, the data axis, None for one data place), or None.
     """
     from yolofastest_torch.train.distill import distill_loss
 
@@ -247,6 +272,9 @@ def make_train_step(model: torch.nn.Module, config: Config, lr_schedule: Callabl
         return name.split(".")[0] in frozen_modules
 
     frozen_names = frozenset(filter(is_frozen, p_layout.names))
+    spatial = rows is not None and rows.count > 1
+    if not spatial:
+        loss_group = group
     stats_masks: Dict[torch.device, torch.Tensor] = {}
     bound: Dict[str, Any] = {"tensors": None, "leaves": {}}
 
@@ -266,12 +294,16 @@ def make_train_step(model: torch.nn.Module, config: Config, lr_schedule: Callabl
                 heads = model(imgs)
                 if not isinstance(heads, (tuple, list)):  # lite: single head
                     heads = (heads,)
+                input_hw = tuple(imgs.shape[1:3])
+                if spatial:
+                    heads = gather_rows(heads, rows)
+                    input_hw = (input_hw[0] * rows.count, input_hw[1])
             with record_function("train_step/loss"):
-                loss, comps = total_loss(heads, targets, io.anchors, tuple(imgs.shape[1:3]),
+                loss, comps = total_loss(heads, targets, io.anchors, input_hw,
                                          ignore_thre=tr.iou_loss_thre, num_cls=io.num_cls,
-                                         branch_weight=tr.branch_weight, group=group)
+                                         branch_weight=tr.branch_weight, group=loss_group)
                 if distill_fn is not None:
-                    d = distill_loss(tuple(heads), distill_fn(imgs), group)
+                    d = distill_loss(tuple(heads), distill_fn(imgs), loss_group)
                     loss = loss + distill_weight * d
                     comps = dict(comps, distill=d, total=loss)
             with record_function("train_step/backward"):
@@ -287,8 +319,10 @@ def make_train_step(model: torch.nn.Module, config: Config, lr_schedule: Callabl
         if group is not None:
             # the ranks' gradients and loss shares sum to the global ones
             names = list(comps)
-            summed = torch.cat([grad, torch.stack([comps[k].detach() for k in names])
-                                .to(grad.dtype)])
+            stacked = torch.stack([comps[k].detach() for k in names]).to(grad.dtype)
+            if spatial:  # the spatial ranks of a data place hold one loss: add it once
+                stacked = stacked * float(rows.index == 0)
+            summed = torch.cat([grad, stacked])
             dist.all_reduce(summed, group=group)
             grad = summed[:grad.numel()]
             comps = dict(zip(names, summed[grad.numel():]))
@@ -350,8 +384,9 @@ class Trainer:
       arch: ``"fastest"`` or ``"lite"``.
       distill_fn, distill_weight: teacher heads (:func:`make_teacher_fn`)
         and the weight of their MSE in the loss.
-      shard_spatial: split image rows over a ``spatial`` axis: refused (the
-        port has no halo exchange).
+      shard_spatial: split the image rows over the mesh's ``spatial`` axis,
+        where it has one (module docstring): :meth:`step` takes the rank's
+        rows.
       freeze: a :func:`freeze_masks` spec.
       device: "cuda" (the default, which needs a card) or "cpu", without
         a ``mesh`` (the mesh names each rank's device).
@@ -363,8 +398,6 @@ class Trainer:
                  shard_spatial: bool = False, arch: str = "fastest",
                  distill_fn: Optional[Callable] = None, distill_weight: float = 1.0,
                  freeze: Optional[str] = None, device=None):
-        if shard_spatial:
-            raise NotImplementedError(f"Trainer(shard_spatial=True): {NO_SPATIAL}")
         self.config = config
         self.logger = logger
         self.arch = arch
@@ -376,8 +409,17 @@ class Trainer:
                              "the rank's device)")
         self.mesh = mesh
         self.device = mesh.device
-        group = mesh.reduce_group
         io, tr = config.io, config.train
+        # as JAX's batch_sharding: the flag asks nothing of a one-axis mesh
+        self.shard_spatial = shard_spatial and "spatial" in mesh.axis_names
+        rows = mesh.rows if self.shard_spatial else None
+        if self.shard_spatial:
+            group = mesh.reduce_group  # every rank holds a part of every sum
+            for h, _ in multiscale_buckets(config):
+                check_image_rows(h, mesh.n_spatial, "Trainer(shard_spatial=True), a "
+                                 "multi-scale bucket")
+        else:  # the spatial ranks of a data place (if any) are replicas
+            group = mesh.data_reduce_group
         model = build_model(io.num_cls, io.num_anchors, compute_dtype, arch, variables,
                             seed=tr.seed if seed is None else seed)
         self.frozen_modules: List[str] = []
@@ -391,6 +433,8 @@ class Trainer:
         for m in self.model.modules():
             if isinstance(m, BatchNorm):
                 m.group = group
+            elif isinstance(m, ConvNormAct):
+                m.rows = rows
         sd = self.model.state_dict()
         stat_names = {n for n, _ in self.model.named_buffers()}
         self.layouts = (FlatLayout([(n, t.shape) for n, t in sd.items() if n not in stat_names]),
@@ -409,7 +453,7 @@ class Trainer:
         self._seen_hw: set = set()
         self._train_step = make_train_step(self.model, config, self.lr_schedule, self.layouts,
                                            distill_fn, distill_weight, self.frozen_modules,
-                                           group)
+                                           group, rows, mesh.data_reduce_group)
 
     # ------------------------------------------------------------------ steps
     def upload(self, a) -> torch.Tensor:
@@ -437,8 +481,12 @@ class Trainer:
 
     def step(self, imgs, targets) -> Dict[str, torch.Tensor]:
         """One step on a host batch (numpy) or device tensors: over a mesh of
-        several ranks, this rank's shard of the global batch."""
+        several ranks, this rank's shard of the global batch (with
+        ``shard_spatial``, its rows of the images; the targets whole)."""
         hw = tuple(imgs.shape[1:3])
+        if self.shard_spatial:
+            hw = (hw[0] * self.mesh.n_spatial, hw[1])
+            check_image_rows(hw[0], self.mesh.n_spatial, "Trainer.step")
         if hw not in self._seen_hw:
             self._seen_hw.add(hw)
             if self.logger and (self.config.train.multiscale_steps > 0 or len(self._seen_hw) > 1):
