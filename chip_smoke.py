@@ -27,7 +27,13 @@ per call), train (fit, overfit, card against CPU in float64 and fp32,
 restore, and the step's timing at B=16 and B=64, fp32 and bf16, split by
 its profiler spans), eval, distill, deploy_trained, export (the ``export``
 command's files imported back through the Detector, ``model.pt`` on the
-card, ``detect`` on a checkpoint directory), int8 (the shipped int8
+card, ``detect`` on a checkpoint directory), programs (the ``.pt2``
+programs of ``export --calib-data --device cuda`` loaded here and in a
+fresh process that imports only ``yolofastest_torch.kernels``: golden
+34/34 with 6 chain and 1 NMS launches a call, the folded and int8 heads
+against the Detector's, B=1 and B=64 times beside ``run_packed``, the host
+cost of the chain operator's dispatch, and the generic ONNX exporter's file
+of the card-traced forward), int8 (the shipped int8
 artifacts through both int8 backends: golden recall, rows and heads against
 the CPU port, every layer's integer accumulators against exact int64 ones,
 calibration on the card against the CPU with a cache written and read,
@@ -694,6 +700,351 @@ def export_path(card, counted) -> dict:
     return counts
 
 
+# The programs phase's fresh process: the three .pt2 files of the export
+# command, with only the kernels' package imported (their operators).
+PROGRAM_CONSUMER = r"""
+import json, os, sys
+import numpy as np
+import torch
+from yolofastest_torch import kernels
+
+out, tmp = sys.argv[1:]
+torch.backends.cudnn.allow_tf32 = False
+frames = torch.from_numpy(np.load(os.path.join(tmp, "frames.npy"))).cuda()
+x = torch.from_numpy(np.load(os.path.join(tmp, "x.npy"))).cuda()
+res, launches = {}, []
+with torch.no_grad():
+    detect = torch.export.load(os.path.join(out, "detect.pt2")).module()
+    for i in range(frames.shape[0]):
+        kernels.reset_launch_counts()
+        d = detect(frames[i:i + 1])
+        torch.cuda.synchronize()
+        launches.append(dict(kernels.LAUNCHES))
+        for k, v in d.items():
+            res.setdefault("detect/" + k, []).append(v.cpu().numpy())
+    for name in ("forward", "forward_int8"):
+        m = torch.export.load(os.path.join(out, name + ".pt2")).module()
+        for i in range(x.shape[0]):
+            for j, h in enumerate(m(x[i:i + 1])):
+                res.setdefault(name + "/" + str(j), []).append(h.cpu().numpy())
+np.savez(os.path.join(tmp, "consumer.npz"), **{k: np.concatenate(v) for k, v in res.items()})
+prefixes = ("yolofastest_torch.models", "yolofastest_torch.inference", "yolofastest_torch.export",
+            "yolofastest_torch.quant", "yolofastest_torch.train", "yolofastest_tpu", "jax", "flax")
+print(json.dumps({"launches": launches,
+                  "model_modules": sorted(m for m in sys.modules if m.startswith(prefixes))}))
+"""
+
+
+class _StampedOut:
+    """A stdout that keeps the host time at which each line ends, so that
+    the export command's seconds a file are the time between its ``wrote``
+    lines."""
+
+    def __init__(self):
+        self.lines, self._part = [], ""
+
+    def write(self, text):
+        now = time.perf_counter()
+        *done, self._part = (self._part + text).split("\n")
+        self.lines += [(now, line) for line in done]
+        return len(text)
+
+    def flush(self):
+        pass
+
+    def seconds_per_file(self, start):
+        last, out = start, {}
+        for t, line in self.lines:
+            if line.startswith("wrote "):
+                out[os.path.basename(line.split()[1])] = t - last
+                last = t
+        return out
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Median host ms of one call with its result on the host, on an idle
+    card."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _images_per_s(fn, batch: int, reps: int) -> float:
+    """``reps`` calls back to back and one synchronise: images a second."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return batch * reps / (time.perf_counter() - t0)
+
+
+def _host_us_per_call(fn, reps: int = 200) -> float:
+    """Host microseconds a call of ``reps`` back-to-back calls, before the
+    card is waited for: the time to dispatch and launch."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def programs_path(card, counted) -> dict:
+    """The programs phase on the card: ``export --calib-data <8 golden
+    frames> --device cuda`` on the 256x320 zoo (the seconds of each ``.pt2``
+    from its ``wrote`` lines); ``forward.pt2``, ``detect.pt2`` and
+    ``forward_int8.pt2`` (B=1) loaded here (``load_exported``) and in a fresh
+    process that imports only ``yolofastest_torch.kernels``: detect.pt2 on
+    the 20 golden frames one at a time (34/34 by the strict rule; 6 K2 and 1
+    NMS launches a call), forward.pt2 within FP32_TOL of the folded forward
+    over the chain kernel (fp32 without TF32; 6 K2 a call), forward_int8.pt2
+    equal to ``Detector(backend="int8")``'s heads with the same calibration;
+    a B=64 detect program exported, saved and loaded, its rows against the
+    B=1 program's, its B=1 latency and B=64 images/s beside
+    ``Detector.run_packed``'s; the host time of a K2 call through its
+    registered operator beside the ctypes launch it wraps; and
+    ``export_torch_onnx`` of the folded forward traced with CUDA tensors (the
+    chain operator inlined through its plain version), run by
+    tools/onnx_check.py, within 2e-4 of the kernel-run heads.  One JSON
+    line; returns the launch counts."""
+    import contextlib
+    import tempfile
+
+    import cv2
+    import torch
+
+    from yolofastest_torch.cli import main as cli_main
+    from yolofastest_torch.cli._common import load_calibration
+    from yolofastest_torch.configs import get_config
+    from yolofastest_torch.export import (export_detect_pipeline, export_torch_onnx,
+                                          load_exported, save_exported)
+    from yolofastest_torch.inference import Detector, detections_to_lists
+    from yolofastest_torch.kernels import res_block as rb
+    from yolofastest_torch.models import (RES_CHAINS, fold_batchnorm, folded_apply,
+                                          load_variables, torch_params_from_folded)
+    from yolofastest_torch.ops import normalize
+    from yolofastest_torch.utils.device import exact_fp32
+
+    t0 = time.perf_counter()
+    cfg = get_config("256x320")
+    zoo_file = os.path.join(WEIGHTS, "yolofastest_256x320.npz")
+    zoo = load_variables(zoo_file)
+    fx = np.load(os.path.join(FIXTURES, "golden_256x320.npz"))
+    pre = fx["pre_imgs"]
+    n_img = int(pre.shape[0])
+    frames = torch.from_numpy(pre).cuda()  # (N, H, W) uint8 gray: the detect program's input
+    x = normalize(frames[:4])[..., None]  # the forward programs' input
+    counts = {}
+    with tempfile.TemporaryDirectory(prefix="yf_programs_") as tmp, contextlib.ExitStack() as stack:
+        calib, out = os.path.join(tmp, "calib"), os.path.join(tmp, "out")
+        os.makedirs(calib)
+        for i, frame in enumerate(make_frames(pre[:8])):
+            cv2.imwrite(os.path.join(calib, f"g{i}.jpg"), frame)
+        stamped = _StampedOut()
+        c0 = time.perf_counter()
+        saved_stdout, sys.stdout = sys.stdout, stamped
+        try:
+            rc, counts["export"] = counted(lambda: cli_main(
+                ["export", "--weights", zoo_file, "--out", out, "--calib-data", calib,
+                 "--device", "cuda"]))
+        finally:
+            sys.stdout = saved_stdout
+        export_s = time.perf_counter() - c0
+        per_file = stamped.seconds_per_file(c0)
+        files = sorted(os.listdir(out))
+        check(rc == 0 and {"forward.pt2", "detect.pt2", "forward_int8.pt2"} <= set(files),
+              f"programs: export rc {rc}, files {files}")
+        # the same three files in a fresh process with only the kernels' package
+        np.save(os.path.join(tmp, "frames.npy"), pre)
+        np.save(os.path.join(tmp, "x.npy"), x.cpu().numpy())
+        child_t0 = time.perf_counter()
+        child = subprocess.Popen([sys.executable, "-c", PROGRAM_CONSUMER, out, tmp], cwd=ROOT,
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        stack.callback(lambda: child.poll() is None and (child.kill(), child.communicate()))
+
+        load_s, programs = {}, {}
+        for name in ("forward", "detect", "forward_int8"):
+            c1 = time.perf_counter()
+            programs[name] = load_exported(os.path.join(out, f"{name}.pt2"))
+            load_s[name] = time.perf_counter() - c1
+
+        # detect.pt2 (B=1) on every golden frame
+        outs, detect_counts = [], []
+        for i in range(n_img):
+            d, c = counted(lambda: programs["detect"].call(frames[i:i + 1]))
+            outs.append(d)
+            detect_counts.append(c)
+        rows = [r for d in outs for r in detections_to_lists(d)]
+        matched, notes = golden_match(rows, fx["boxes"], n_img)
+
+        # forward.pt2 against the folded forward over the chain kernel
+        params = torch_params_from_folded(fold_batchnorm(zoo), "cuda")
+        with torch.no_grad(), exact_fp32():
+            ref, counts["folded_forward"] = counted(lambda: folded_apply(params, x))
+        fwd, fwd_counts = [], []
+        for i in range(x.shape[0]):
+            heads, c = counted(lambda: programs["forward"].call(x[i:i + 1]))
+            fwd.append(heads)
+            fwd_counts.append(c)
+        fwd_ratio = max(fp32_ratio(h, r[i:i + 1]) for i, heads in enumerate(fwd)
+                        for h, r in zip(heads, ref))
+        fwd_err = max(float((h - r[i:i + 1]).abs().max()) for i, heads in enumerate(fwd)
+                      for h, r in zip(heads, ref))
+
+        # forward_int8.pt2 against the int8 Detector with the command's calibration
+        det8 = Detector(cfg, zoo, backend="int8", calibration=load_calibration(calib, cfg.io),
+                        device="cuda")
+        int8_equal, int8_counts = True, []
+        for i in range(x.shape[0]):
+            heads, c = counted(lambda: programs["forward_int8"].call(x[i:i + 1]))
+            int8_counts.append(c)
+            want = det8.forward_heads(x[i:i + 1])
+            int8_equal &= all(torch.equal(a, b) for a, b in zip(heads, want))
+
+        # the generic ONNX exporter on the folded forward traced with CUDA tensors
+        x2 = x[:2]
+        c1 = time.perf_counter()
+        onnx_path = export_torch_onnx(lambda v: folded_apply(params, v), (x2,),
+                                      os.path.join(tmp, "folded.onnx"))
+        onnx_s = time.perf_counter() - c1
+        np.save(os.path.join(tmp, "x2.npy"), x2.cpu().numpy())
+        onnx = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "onnx_check.py"),
+                               onnx_path, os.path.join(tmp, "x2.npy"),
+                               os.path.join(tmp, "y2.npz")], capture_output=True, text=True,
+                              timeout=600)
+        onnx_err = None
+        if onnx.returncode == 0:
+            with np.load(os.path.join(tmp, "y2.npz")) as y:
+                onnx_err = max(float(np.abs(y[f"output_{j}"] - ref[j][:2].cpu().numpy()).max())
+                               for j in range(2))
+        # the fresh process, started after the export, read here (it overlaps the
+        # checks above; the times below are taken after it ended)
+        child_out, child_err = child.communicate(timeout=600)
+        child_s = time.perf_counter() - child_t0
+        check(child.returncode == 0, f"programs: fresh process exited {child.returncode}: "
+                                     f"{child_err[-2000:]}")
+        child_report = json.loads(child_out.strip().splitlines()[-1])
+        got = np.load(os.path.join(tmp, "consumer.npz"))
+        child_det = {k[len("detect/"):]: got[k] for k in got.files if k.startswith("detect/")}
+        child_rows = detections_to_lists(child_det)
+        child_matched, child_notes = golden_match(child_rows, fx["boxes"], n_img)
+        child_rows_equal = all(rows_close(a, b) for a, b in zip(child_rows, rows))
+        child_fwd_ratio = max(
+            fp32_ratio(torch.from_numpy(got[f"forward/{j}"][i:i + 1]), fwd[i][j].cpu())
+            for i in range(x.shape[0]) for j in range(2))
+        child_int8_equal = all(
+            np.array_equal(got[f"forward_int8/{j}"][i:i + 1], programs["forward_int8"].call(
+                x[i:i + 1])[j].cpu().numpy()) for i in range(x.shape[0]) for j in range(2))
+
+        # the host cost of the operator: K2 through ``yolofastest::res_chain_rows``
+        # beside the ctypes launch it wraps, on the res1 plane at B=1
+        (h1, w1), = chain_planes(cfg.io.input_hw)[:1]
+        chain_w = params["chains"][RES_CHAINS[0]]
+        x_rows = torch.zeros((h1 * w1, chain_w[0].shape[1]), device="cuda")
+        chain_w = rb._prepare(x_rows, x_rows.shape[1], x_rows.shape[0], (h1, w1), chain_w)
+        dispatch = {"op_us": [], "ctypes_us": []}
+        for _ in range(3):
+            dispatch["op_us"].append(_host_us_per_call(
+                lambda: rb.CHAIN_OPS[True](x_rows, *chain_w, h1, w1)))
+            dispatch["ctypes_us"].append(_host_us_per_call(
+                lambda: rb._launch(True, x_rows, *chain_w, (h1, w1))))
+
+        # a B=64 detect program beside Detector.run_packed
+        c1 = time.perf_counter()
+        p64 = export_detect_pipeline(zoo, cfg, batch=64, device="cuda")
+        export64_s = time.perf_counter() - c1
+        save_exported(p64, os.path.join(tmp, "detect64.pt2"))
+        c1 = time.perf_counter()
+        p64 = load_exported(os.path.join(tmp, "detect64.pt2"))
+        load64_s = time.perf_counter() - c1
+        frames64 = frames[torch.arange(64) % n_img]
+        d64, counts["detect64"] = counted(lambda: p64.call(frames64))
+        rows64 = detections_to_lists(d64)[:n_img]
+        rows64_equal = all(rows_close(a, b) for a, b in zip(rows64, rows))
+        det = Detector(cfg, zoo, device="cuda")
+        det.warmup(1)
+        det.warmup(64)
+        timing = {}
+        for _ in range(2):  # program, Detector, program, Detector
+            for key, b1, b64 in (
+                    ("detect_pt2", lambda: programs["detect"].call(frames[:1])["count"].cpu(),
+                     lambda: p64.call(frames64)),
+                    ("run_packed", lambda: det.run_packed(normalize(frames[:1])[..., None]).cpu(),
+                     lambda: det.run_packed(normalize(frames64)[..., None]))):
+                t = timing.setdefault(key, {"b1_latency_ms": [], "b64_images_per_s": []})
+                t["b1_latency_ms"].append(_host_ms(b1, 50))
+                t["b64_images_per_s"].append(_images_per_s(b64, 64, 20))
+
+    emit("programs", card=card, res="256x320", export_seconds=export_s,
+         seconds_per_file={k: v for k, v in per_file.items() if k.endswith(".pt2")},
+         load_seconds=load_s, export_launches=counts["export"],
+         detect_pt2={"matched": matched, "reference": int(fx["boxes"].shape[0]),
+                     "notes": notes[:5], "launches_per_call": detect_counts[0],
+                     "calls_with_other_launches": sum(c != detect_counts[0]
+                                                      for c in detect_counts)},
+         forward_pt2={"heads_max_abs_err": fwd_err, "ratio_to_tolerance": fwd_ratio,
+                      "tolerance": f"{FP32_TOL} rel+abs of the folded forward (chain "
+                                   "kernel), fp32 without TF32",
+                      "launches_per_call": fwd_counts[0],
+                      "launches_of_the_folded_forward": counts["folded_forward"]},
+         forward_int8_pt2={"equal_to_int8_detector": bool(int8_equal),
+                           "launches_per_call": int8_counts[0]},
+         fresh_process={"seconds": child_s, "matched": child_matched, "notes": child_notes[:5],
+                        "rows_close_to_this_process": child_rows_equal,
+                        "forward_ratio_to_tolerance": child_fwd_ratio,
+                        "int8_equal": child_int8_equal,
+                        "launches_per_call": child_report["launches"][0],
+                        "calls_with_other_launches": sum(
+                            c != child_report["launches"][0] for c in child_report["launches"]),
+                        "model_modules": child_report["model_modules"]},
+         detect64={"export_seconds": export64_s, "load_seconds": load64_s,
+                   "launches": counts["detect64"], "rows_close_to_b1_program": rows64_equal},
+         timing={k: {m: float(np.median(v)) for m, v in t.items()} | {"runs": t}
+                 for k, t in timing.items()},
+         timing_note="b1_latency_ms: median host ms of 50 calls on an idle card with the result "
+                     "fetched; b64_images_per_s: 20 calls back to back and one synchronise; "
+                     "both include the normalise; two alternating runs each",
+         op_dispatch={"op_us": float(np.median(dispatch["op_us"])),
+                      "ctypes_us": float(np.median(dispatch["ctypes_us"])), "runs": dispatch,
+                      "what": "host us a call of K2 on the res1 plane at B=1, 200 back to back "
+                              "before a synchronise: through the registered operator and "
+                              "through the ctypes launch it wraps (three alternating runs)"},
+         onnx={"seconds": onnx_s, "rc": onnx.returncode, "out": onnx.stdout.strip()[-120:],
+               "heads_max_abs_err": onnx_err, "tolerance": 2e-4},
+         seconds=time.perf_counter() - t0)
+    want1 = {"res_chain_cf": 0, "res_chain_rows": 6, "nms": 1}
+    check(matched == fx["boxes"].shape[0] and not notes,
+          f"programs: detect.pt2 golden {matched}/{fx['boxes'].shape[0]} {notes[:3]}")
+    check(all(c == want1 for c in detect_counts),
+          f"programs: detect.pt2 launches {detect_counts[:3]}, want 6 K2 and 1 NMS a call")
+    check(fwd_ratio <= 1.0 and all(c == {**want1, "nms": 0} for c in fwd_counts),
+          f"programs: forward.pt2 {fwd_ratio} x tolerance, launches {fwd_counts}")
+    check(int8_equal and all(not any(c.values()) for c in int8_counts),
+          f"programs: forward_int8.pt2 equal {int8_equal}, launches {int8_counts}")
+    check(child_matched == fx["boxes"].shape[0] and not child_notes and child_rows_equal
+          and all(c == want1 for c in child_report["launches"])
+          and not child_report["model_modules"] and child_fwd_ratio <= 1.0 and child_int8_equal,
+          f"programs: fresh process {child_matched} {child_notes[:3]} {child_report}")
+    check(counts["detect64"] == want1 and rows64_equal,
+          f"programs: B=64 detect program launches {counts['detect64']}, rows {rows64_equal}")
+    check(onnx.returncode == 0 and "ONNX_CONSUMED_OK" in onnx.stdout and onnx_err is not None
+          and onnx_err <= 2e-4, f"programs: generic ONNX {onnx.stderr[-400:]} err {onnx_err}")
+    return counts
+
+
 def int8_path(card, counted) -> dict:
     """The int8 phase on the card: the shipped int8 artifacts through
     ``Detector(backend="int8"|"int8-fused", int8_artifact=...)`` on the
@@ -1011,7 +1362,8 @@ def quant2_path(card, counted) -> dict:
     # -- export --calib-data <golden frames> --qat-steps 4 --device cuda
     expect = sorted(["model.yfb", "model_int8.yfb", "model.onnx", "detect.onnx", "model.param",
                      "model.bin", "model.prototxt", "model.caffemodel", "model_int8.onnx",
-                     "model.table", "model.pt"])
+                     "model.table", "model.pt", "forward.pt2", "detect.pt2",
+                     "forward_int8.pt2"])
     with tempfile.TemporaryDirectory(prefix="yf_quant2_") as tmp:
         calib, out = os.path.join(tmp, "calib"), os.path.join(tmp, "out")
         os.makedirs(calib)
@@ -1083,7 +1435,7 @@ def quant2_path(card, counted) -> dict:
         check(c["res_chain_rows"] == 6 * batches_n and c["res_chain_cf"] == 0 and c["nms"] == 0,
               f"quant2 {key} launches {c}: want 6 K2 a teacher batch, none in the student")
     check(rc == 0 and files == expect, f"quant2 export: rc {rc}, files {files}")
-    check("forward_int8.stablehlo" in export["not_written_line"]
+    check("forward.mlir and detect.mlir" in export["not_written_line"]
           and export["qat_line"].startswith("QAT distillation: loss"), f"quant2 export: {export}")
     check(scales_equal and table_ok and table_layers > 0, f"quant2 export scales: {export}")
     check(onnx.returncode == 0 and "ONNX_CONSUMED_OK" in onnx.stdout and heads_ok,
@@ -2740,6 +3092,9 @@ def main() -> int:
 
     # ------------------------------------------------------- export path
     export_path(card, counted)
+
+    # ---------------------------------- the serialised programs (.pt2, ONNX)
+    programs_path(card, counted)
 
     # ------------------------------------------------------- int8 path
     int8_path(card, counted)

@@ -6,10 +6,14 @@ start them, where a test that reads them is selected, the first time a test
 module asks for them: the first port module (``tests/test_torch_config.py``)
 asks for both, so the ranks run while the pool of JAX references
 (``tests/_jax_refs.py``) is still starting, and are done when their readers
-come.  Alone, a reader's module starts them itself.  They run at ``nice 19``,
-below the test process and the reference workers (``nice 10``): they use
-the cores those leave idle, and do not hold up the references that the
-modules in between read.  Each module that
+come.  Alone, a reader's module starts them itself.  The ranks run at
+``nice 19``, below the test process and the reference workers (``nice
+10``): they use the cores those leave idle, and do not hold up the
+references that the modules in between read.  The exports' processes run
+at the test process's priority, with one torch thread each: at ``nice 19``
+they waited for the references' compiles and held up their readers by
+20-40 s.
+Each module that
 imports a fixture holds a definition of its own, so the processes live in
 ``_STARTED``: the first definition used starts them, every later one gets
 the same.
@@ -22,14 +26,21 @@ the same.
   read by ``tests/test_torch_train.py::test_two_ranks_match_jax_float64``
   and ``tests/test_torch_spatial.py``;
 * :func:`spatial_processes`: four gloo ranks of ``tests/_torch_ranks.py``
-  ``spatial_rank``, read by ``tests/test_torch_spatial.py``.
+  ``spatial_rank``, read by ``tests/test_torch_spatial.py``;
+* :func:`port_exports`: a process that runs four ``export`` commands (each
+  writes the ``.pt2`` programs, ~5-15 s), read by
+  ``tests/test_torch_export.py`` and ``tests/test_torch_quant_tools.py``,
+  and one that runs ``tests/_torch_programs.py``'s exporter of the ``.pt2``
+  programs and generic ONNX files, read by ``tests/test_torch_programs.py``.
 """
 
+import json
 import multiprocessing
 import os
 import socket
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -44,6 +55,11 @@ SPATIAL_TESTS = ("test_halo_rows_match_slicing", "test_row_window_conv_matches_u
                  "test_spatial_trainer_matches_jax_mesh_float64",
                  "test_spatial_dryrun_four_processes", "test_mesh_places_and_halo_collectives")
 SPATIAL_FRAMES = 4  # golden frames through the sharded detect pipeline
+EXPORT_COMMANDS_TESTS = ("test_torchscript_heads_match_jax", "test_cli_export_writes_jax_files",
+                         "test_cli_export_refusals", "test_cli_export_int8_files")
+PROGRAMS_TESTS = ("test_exported_graphs_record_the_kernels", "test_forward_pt2_matches_jax",
+                  "test_detect_pt2_matches_jax", "test_int8_pt2_matches_jax",
+                  "test_detect_pt2_in_a_fresh_process", "test_full_model_generic_export_64x96")
 NICE = 19
 _STARTED = {}  # name -> what its fixture yields
 
@@ -111,6 +127,106 @@ def spatial_processes(request, tmp_path_factory):
         outs = [str(td / f"rank{r}.pt") for r in range(4)]
         _STARTED["spatial"] = _spawn(spatial_rank, 4, (args,), outs)
     yield from _join_at_end(_STARTED["spatial"])
+
+
+class Exports:
+    """Two processes of ``tests/_torch_programs.py`` ``run_exports``: one
+    runs the ``export`` commands (``argvs``, by name; :meth:`command` waits
+    for one), the other the programs' exporter (:meth:`programs` waits for
+    it).  Each pays the interpreter's start and the first trace's set-up
+    once."""
+
+    def __init__(self, root, argvs, programs: bool):
+        from tests._torch_programs import run_exports
+
+        self.root, self.argvs = root, argvs
+        # the commands' readers come ~40 s into a run, the programs' ~90 s: the
+        # programs' exporter runs beside the reference workers
+        jobs = {"commands": (argvs, str(root), False, 0)} if argvs else {}
+        if programs:
+            jobs["programs"] = ({}, str(root), True, 10)
+        ctx = multiprocessing.get_context("spawn")
+        self.procs = {name: ctx.Process(target=run_exports, args=args)
+                      for name, args in jobs.items()}
+        for proc in self.procs.values():
+            proc.start()
+
+    def command(self, name, timeout: float = 600):
+        """``(returncode, stdout, error)`` of the command ``name``."""
+        path = self.root / f"{name}.json"
+        deadline = time.monotonic() + timeout
+        while not path.exists():
+            assert self.procs["commands"].is_alive() or path.exists(), self._error()
+            assert time.monotonic() < deadline, f"export command {name} still running"
+            time.sleep(0.1)
+        with open(path) as f:
+            done = json.load(f)
+        return done["rc"], done["out"], done["error"]
+
+    def programs(self, timeout: float = 600) -> str:
+        """The programs' directory, once its exporter has ended."""
+        proc = self.procs["programs"]
+        proc.join(timeout=timeout)
+        assert proc.exitcode == 0, self._error()
+        return str(self.root / "programs")
+
+    def _error(self):
+        path = self.root / "error.txt"
+        return path.read_text() if path.exists() else "no traceback written"
+
+
+@pytest.fixture(scope="session")
+def port_exports(request, tmp_path_factory):
+    """:class:`Exports` (or None where none of its readers is selected), with
+    the commands where their readers are selected: ``fastest``, the 256x320
+    zoo on the CPU; ``missing`` and ``calib``, the lite zoo at a 64x96
+    config with a missing --calib-data directory and --qat-steps, and with a
+    directory of one image; ``qat``, the same config with two images and
+    ``--qat-steps 2``."""
+    commands, programs = (_selected(request, EXPORT_COMMANDS_TESTS),
+                          _selected(request, PROGRAMS_TESTS))
+    if not (commands or programs):
+        yield None
+        return
+    if "exports" not in _STARTED:
+        root = tmp_path_factory.mktemp("exports")
+        _STARTED["exports"] = Exports(root, _export_argvs(root) if commands else {}, programs)
+    exports = _STARTED["exports"]
+    yield exports
+    for proc in exports.procs.values():
+        if proc.is_alive():
+            proc.kill()
+        proc.join()
+
+
+def _export_argvs(root):
+    import dataclasses
+
+    import cv2
+    import numpy as np
+
+    from yolofastest_torch.configs import get_config
+    from yolofastest_torch.models import zoo_path
+
+    cfg = get_config("lite-256x320")
+    tiny = root / "tiny.json"
+    tiny.write_text(dataclasses.replace(cfg, io=dataclasses.replace(
+        cfg.io, input_shape=(64, 96, 1))).to_json())
+    for name, n in (("data", 1), ("data2", 2)):
+        (root / name).mkdir()
+        rng = np.random.default_rng(0)
+        for i in range(n):
+            cv2.imwrite(str(root / name / f"im{i}.jpg"), rng.integers(0, 255, (64, 96, 3),
+                                                                     np.uint8))
+    lite = ["export", "--config-json", str(tiny), "--arch", "lite", "--weights",
+            zoo_path("lite_256x320"), "--device", "cpu"]
+    return {"fastest": ["export", "--weights", zoo_path("256x320"), "--out",
+                        str(root / "fastest"), "--device", "cpu"],
+            "missing": lite + ["--out", str(root / "missing_out"), "--calib-data",
+                               str(root / "missing"), "--qat-steps", "3"],
+            "calib": lite + ["--out", str(root / "calib_out"), "--calib-data", str(root / "data")],
+            "qat": lite + ["--out", str(root / "qat_out"), "--calib-data", str(root / "data2"),
+                           "--qat-steps", "2"]}
 
 
 def _train_inputs(tmp_path_factory, name):

@@ -137,6 +137,7 @@ IMPORTS_CODE = (
     "import yolofastest_torch.parallel.mesh, yolofastest_torch.parallel.dryrun\n"
     "import yolofastest_torch.parallel.worker, yolofastest_torch.utils.profiling\n"
     "import yolofastest_torch.parallel.halo\n"
+    "import yolofastest_torch.export.pt2, yolofastest_torch.export.generic_onnx\n"
     "import yolofastest_torch.utils\n"
     "bad = [m for m in sys.modules if 'flax' in m or 'yolofastest_tpu' in m]\n"
     "print(bad)\n"
@@ -164,7 +165,7 @@ def test_sources_import_no_jax():
                    "models/summary.py", "cli/export.py", "cli/quantize.py", "native/__init__.py",
                    "native/engine.py", "data/anchors.py", "data/txt2xml.py",
                    "data/lmdb_reader.py", "cli/datatools.py", "cli/info.py",
-                   "parallel/halo.py"):
+                   "parallel/halo.py", "export/pt2.py", "export/generic_onnx.py"):
         assert os.path.join(ROOT, "yolofastest_torch", module) in paths, module
     for p in paths:
         with open(p) as f:

@@ -9,7 +9,9 @@
   the tree the JAX import of the same file gives, bit for bit; bad input
   fails with the JAX reader's exception class.
 * TorchScript heads equal JAX's ``build_torch_module`` to 1e-6.
-* ``export`` writes JAX's file list minus its four JAX-program files;
+* ``export`` writes JAX's file list with its serialised programs as
+  ``.pt2`` (``forward.pt2``, ``detect.pt2``, and ``forward_int8.pt2`` with
+  calibration images) and without its two StableHLO text files;
   ``convert`` writes the ``.npz`` JAX's command writes.
 * The numpy-only consumers ``tools/{onnx,ncnn,caffe}_check.py`` run the
   port's files to the port's heads.
@@ -22,6 +24,7 @@ The JAX writers and readers are numpy and run here in the test process.
 
 import atexit
 import os
+import pathlib
 import re
 import shutil
 import sys
@@ -34,6 +37,7 @@ import torch
 import yolofastest_torch.export as P
 import yolofastest_tpu.export as J
 from chip_smoke import make_frames
+from tests._background import port_exports  # noqa: F401 (a fixture)
 from tests._jax_refs import jax_refs, register  # noqa: F401 (jax_refs: a fixture)
 from yolofastest_torch.configs import get_config
 from yolofastest_torch.export.onnx import (_attr_int, _attr_ints, _ld, _node, _OnnxExecutor,
@@ -52,10 +56,12 @@ pytestmark = pytest.mark.usefixtures("jax_refs")
 
 ARCHS = {"fastest": ("256x320", "256x320", "yolofastest"),
          "lite": ("lite_256x320", "lite-256x320", "yolofastest-lite")}  # zoo, config, graph
-# JAX export's files; the last four are JAX programs, which the port does not write
+# JAX export's files the port writes too, and its serialised programs, which the
+# port writes as .pt2; JAX's StableHLO text files are not written
 JAX_EXPORT_FILES = ["model.yfb", "model_int8.yfb", "model.onnx", "detect.onnx", "model.param",
                     "model.bin", "model.prototxt", "model.caffemodel", "model.pt"]
-JAX_PROGRAM_FILES = ["forward.stablehlo", "forward.mlir", "detect.stablehlo", "detect.mlir"]
+PROGRAM_FILES = ["forward.pt2", "detect.pt2"]
+JAX_PROGRAM_FILES = ["forward.mlir", "detect.mlir"]
 
 
 def _golden_x(n):
@@ -164,18 +170,14 @@ def exports(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def cli_export(exports, tmp_path_factory):
-    """The port's ``export`` command on the 256x320 zoo: (directory, what it
-    printed)."""
-    import contextlib
-    import io
-
-    from yolofastest_torch.cli import main
-
-    d = tmp_path_factory.mktemp("cli_export")
-    with contextlib.redirect_stdout(io.StringIO()) as printed:
-        assert main(["export", "--weights", zoo_path("256x320"), "--out", str(d)]) == 0
-    return d, printed.getvalue()
+def cli_export(port_exports):  # noqa: F811
+    """The port's ``export`` command on the 256x320 zoo, on the CPU, run by
+    ``tests/_background.py`` from the first port module: (directory, what
+    it printed)."""
+    rc, out, error = port_exports.command("fastest")
+    assert rc == 0, error
+    argv = port_exports.argvs["fastest"]
+    return pathlib.Path(argv[argv.index("--out") + 1]), out
 
 
 @pytest.fixture(scope="module")
@@ -359,11 +361,14 @@ def test_torchscript_heads_match_jax(exports, cli_export, arch):
 
 # ----------------------------------------------------------------- commands
 def test_cli_export_writes_jax_files(exports, cli_export):
-    """export: JAX's file list minus the JAX programs (and a line saying so),
-    the same bytes as the JAX writers' (ONNX: the producer name aside)."""
+    """export: JAX's file list with the programs as .pt2, less the StableHLO
+    text (and a line saying so), the same bytes as the JAX writers' (ONNX:
+    the producer name aside)."""
     d, printed = cli_export
-    assert sorted(os.listdir(d)) == sorted(JAX_EXPORT_FILES)
-    assert all(name in printed for name in JAX_PROGRAM_FILES)
+    assert sorted(os.listdir(d)) == sorted(JAX_EXPORT_FILES + PROGRAM_FILES)
+    assert printed.splitlines()[-1].startswith(
+        "not written: forward.mlir and detect.mlir are JAX programs")
+    assert all(f"wrote {d / name}" in printed for name in PROGRAM_FILES)
     theirs = exports["fastest"]["root"] / "jax"
     for name in JAX_EXPORT_FILES[:-1]:
         if name.endswith(".onnx"):
@@ -372,43 +377,35 @@ def test_cli_export_writes_jax_files(exports, cli_export):
             assert (d / name).read_bytes() == (theirs / name).read_bytes(), name
 
 
-def test_cli_export_refusals(exports, tmp_path, capsys):
-    """The int8 branch of ``export`` (the lite zoo at a 64x96 config): a
-    missing --calib-data directory and --qat-steps without calibration each
-    print their line and still write the fp files, without the int8 extras;
-    --calib-data with images writes them and names forward_int8.stablehlo
-    among the JAX programs; a lite ONNX under --arch fastest stops as the JAX
-    command does."""
-    import dataclasses
-
+def test_cli_export_refusals(exports, port_exports, tmp_path):  # noqa: F811
+    """The int8 branch of ``export`` (the lite zoo at a 64x96 config; the
+    commands run by ``tests/_background.py``): a missing --calib-data
+    directory and --qat-steps without calibration each print their line and
+    still write the fp files and programs, without the int8 extras;
+    --calib-data with an image writes them and forward_int8.pt2; the line of
+    JAX programs not written names the StableHLO text alone; a lite ONNX
+    under --arch fastest stops as the JAX command does."""
     from yolofastest_torch.cli import main
 
-    cfg = get_config("lite-256x320")
-    cfgj = tmp_path / "tiny.json"
-    cfgj.write_text(dataclasses.replace(cfg, io=dataclasses.replace(
-        cfg.io, input_shape=(64, 96, 1))).to_json())
-    data = tmp_path / "data"
-    data.mkdir()
-    cv2 = pytest.importorskip("cv2")
-    cv2.imwrite(str(data / "im0.jpg"), np.random.default_rng(0).integers(0, 255, (64, 96, 3),
-                                                                         np.uint8))
-    base = ["export", "--config-json", str(cfgj), "--arch", "lite", "--weights",
-            zoo_path("lite_256x320"), "--device", "cpu"]
-    fp_files = ["detect.onnx", "model.bin", "model.caffemodel", "model.onnx", "model.param",
-                "model.prototxt", "model.pt", "model.yfb", "model_int8.yfb"]
-    missing = str(tmp_path / "missing")
-    assert main(base + ["--out", str(tmp_path / "a"), "--calib-data", missing,
-                        "--qat-steps", "3"]) == 0
-    printed = capsys.readouterr().out.splitlines()
+    def run(name):
+        rc, out, error = port_exports.command(name)
+        assert rc == 0, error
+        argv = port_exports.argvs[name]
+        return (pathlib.Path(argv[argv.index("--out") + 1]), argv[argv.index("--calib-data") + 1],
+                out.splitlines())
+
+    fp_files = ["detect.onnx", "detect.pt2", "forward.pt2", "model.bin", "model.caffemodel",
+                "model.onnx", "model.param", "model.prototxt", "model.pt", "model.yfb",
+                "model_int8.yfb"]
+    out, missing, printed = run("missing")
     assert printed[:2] == [f"no calibration images (.jpg/.png/.bmp) in {missing}",
                            "--qat-steps needs --calib-data (skipping QAT)"]
-    assert sorted(os.listdir(tmp_path / "a")) == fp_files
-    assert "and detect.mlir are JAX programs" in printed[-1]
-    assert main(base + ["--out", str(tmp_path / "b"), "--calib-data", str(data)]) == 0
-    printed = capsys.readouterr().out.splitlines()
-    assert sorted(os.listdir(tmp_path / "b")) == sorted(fp_files + ["model.table",
-                                                                    "model_int8.onnx"])
-    assert "forward_int8.stablehlo are JAX programs" in printed[-1]
+    assert sorted(os.listdir(out)) == fp_files
+    assert "forward.mlir and detect.mlir are JAX programs" in printed[-1]
+    out, _, printed = run("calib")
+    assert sorted(os.listdir(out)) == sorted(fp_files + [
+        "model.table", "model_int8.onnx", "forward_int8.pt2"])
+    assert "forward.mlir and detect.mlir are JAX programs" in printed[-1]
     with pytest.raises(SystemExit, match="single-head"):
         main(["export", "--weights", str(exports["lite"]["root"] / "port/model.onnx"), "--out",
               str(tmp_path / "o")])

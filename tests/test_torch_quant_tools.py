@@ -61,6 +61,7 @@ import dataclasses
 import io
 import json
 import os
+import pathlib
 import shutil
 import tempfile
 import types
@@ -69,6 +70,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests._background import port_exports  # noqa: F401 (a fixture)
 from tests._jax_refs import jax_refs, register  # noqa: F401 (jax_refs: a fixture)
 from yolofastest_torch.models import FoldedExecutor, fold_batchnorm, load_variables, zoo_path
 from yolofastest_torch.quant import (calibrate, fake_quant_act, fake_quant_weight,
@@ -548,15 +550,17 @@ def test_cli_prune_matches_jax(case, tmp_path, capsys):
         assert a.files == b.files and all(np.array_equal(a[n], b[n]) for n in a.files)
 
 
-def test_cli_export_int8_files(tmp_path, capsys):
+def test_cli_export_int8_files(tmp_path, port_exports):  # noqa: F811
     """``export --calib-data D --qat-steps 2 --device cpu`` (the tiny lite
-    config): JAX's file list less its programs, with the line naming them;
-    ``model_int8.yfb`` carries the command's own calibration of D and the
-    QAT-refined weights, ``model_int8.onnx`` is the QDQ writer's file of
-    those, and ``model.table`` is made from the fp weights with the same
-    scales, each byte-equal to the JAX writer on the same inputs;
-    ``model.yfb`` and the ncnn pair keep the fp weights."""
-    from yolofastest_torch.cli import main
+    config, two images from a seed; the command run by
+    ``tests/_background.py`` with one torch thread, and the references
+    here with one): JAX's file list with its programs as .pt2 and without
+    its StableHLO text, with the line naming it; ``model_int8.yfb`` carries
+    the command's own calibration of D and the QAT-refined weights,
+    ``model_int8.onnx`` is the QDQ writer's file of those, and
+    ``model.table`` is made from the fp weights with the same scales, each
+    byte-equal to the JAX writer on the same inputs; ``model.yfb`` and the
+    ncnn pair keep the fp weights."""
     from yolofastest_torch.cli._common import load_calibration
     from yolofastest_torch.configs import Config
     from yolofastest_tpu.export import export_ncnn_table as jtable
@@ -564,24 +568,31 @@ def test_cli_export_int8_files(tmp_path, capsys):
     from yolofastest_tpu.export import save_native_weights as jsave
     from yolofastest_tpu.quant import quantize_weights as jquant
 
-    inp = cli_inputs()
-    out = tmp_path / "out"
-    assert main(["export", "--config-json", inp["cfg"], "--arch", "lite", "--weights",
-                 zoo_path("lite_256x320"), "--out", str(out), "--calib-data", inp["data"],
-                 "--qat-steps", "2", "--device", "cpu"]) == 0
-    printed = capsys.readouterr().out.splitlines()
+    rc, stdout, error = port_exports.command("qat")
+    assert rc == 0, error
+    argv = port_exports.argvs["qat"]
+    inp = {k: argv[argv.index(flag) + 1] for k, flag in (("cfg", "--config-json"),
+                                                         ("data", "--calib-data"))}
+    out = pathlib.Path(argv[argv.index("--out") + 1])
+    printed = stdout.splitlines()
     assert sorted(os.listdir(out)) == sorted(
         ["model.yfb", "model_int8.yfb", "model.onnx", "detect.onnx", "model.param", "model.bin",
-         "model.prototxt", "model.caffemodel", "model_int8.onnx", "model.table", "model.pt"])
+         "model.prototxt", "model.caffemodel", "model_int8.onnx", "model.table", "model.pt",
+         "forward.pt2", "detect.pt2", "forward_int8.pt2"])
     assert printed[0].startswith("QAT distillation: loss ") and "(best of 2 steps)" in printed[0]
-    assert "forward_int8.stablehlo are JAX programs" in printed[-1]
-    with open(inp["cfg"]) as f:
-        cfg = Config.from_json(f.read())
-    folded = fold_batchnorm(load_variables(zoo_path("lite_256x320")))
-    cal = load_calibration(inp["data"], cfg.io)
-    scales = calibrate(folded, [cal], arch="lite", device="cpu")
-    tuned, hist = qat_finetune(folded, scales, [cal], arch="lite", steps=2, lr=1e-4,
-                               device="cpu")
+    assert "forward.mlir and detect.mlir are JAX programs" in printed[-1]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with open(inp["cfg"]) as f:
+            cfg = Config.from_json(f.read())
+        folded = fold_batchnorm(load_variables(zoo_path("lite_256x320")))
+        cal = load_calibration(inp["data"], cfg.io)
+        scales = calibrate(folded, [cal], arch="lite", device="cpu")
+        tuned, hist = qat_finetune(folded, scales, [cal], arch="lite", steps=2, lr=1e-4,
+                                   device="cpu")
+    finally:
+        torch.set_num_threads(threads)
     assert printed[0] == "QAT distillation: loss %.3e -> %.3e (best of 2 steps)" % (
         hist[0], min(hist))
     jsave(jquant(tuned), str(tmp_path / "jax.yfb"), act_scales=scales, io_config=cfg.io)

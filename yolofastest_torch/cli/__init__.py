@@ -8,8 +8,9 @@ Every command of the JAX package's CLI (``python -m yolofastest_tpu``):
   train     train on a VOC-XML or COCO dataset (checkpoints, validation)
   eval      mAP on a VOC-XML or COCO val set (--backend train | fp | native | native-int8
             | int8 | int8-fused)
-  export    weights -> .yfb, ONNX, ncnn, Caffe and TorchScript artifacts, and with
-            --calib-data the int8 QDQ ONNX, ncnn table and scaled .yfb (--qat-steps)
+  export    weights -> .yfb, ONNX, ncnn, Caffe and TorchScript artifacts and the .pt2
+            programs (forward, detect), and with --calib-data the int8 QDQ ONNX, ncnn
+            table, scaled .yfb and forward_int8.pt2 (--qat-steps)
   convert   reference .pth, ncnn pair or .onnx -> zoo .npz
   prune     structured channel pruning of the res blocks -> smaller .npz
   sensitivity  per-layer int8 sensitivity table and a --keep-fp suggestion
@@ -20,8 +21,9 @@ Every command of the JAX package's CLI (``python -m yolofastest_tpu``):
   anchors   k-means auto-anchors from a dataset's GT boxes
 
 The first five and ``sensitivity`` take ``--device cuda|cpu`` (default
-cuda); ``export`` takes it for its calibration and QAT, and writes its files
-on the host; ``convert``, ``prune``, ``info`` and the data tools run on the
+cuda); ``export`` takes it for its calibration, its QAT and its ``.pt2``
+programs (exported on the device they will run on), and writes its other
+files on the host; ``convert``, ``prune``, ``info`` and the data tools run on the
 host.  ``detect``, ``serve``, ``video`` and ``eval`` take ``--backend
 native|native-int8``: the C++ engine of ``cpp/`` on the host CPU
 (``yolofastest_torch.native``; ``native-int8`` calibrates on ``--device``

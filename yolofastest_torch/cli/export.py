@@ -12,9 +12,13 @@ table, from the fp weights that ``model.param``/``model.bin`` ship);
 ``--qat-steps N`` first fine-tunes the int8 artifacts' weights by
 quantisation-aware distillation on those images.  The calibration and QAT
 run on ``--device`` (default cuda); the writers are numpy and the
-TorchScript trace runs on the CPU.  The JAX command's ``forward``/``detect``
-``.stablehlo`` and ``.mlir`` files, and ``forward_int8.stablehlo``, are JAX
-programs and are not written.
+TorchScript trace runs on the CPU.  Where the JAX command writes its
+serialised programs (``forward``/``detect.stablehlo``, and
+``forward_int8.stablehlo`` with calibration images), this one writes
+``forward.pt2`` and ``detect.pt2`` (and ``forward_int8.pt2``), exported on
+``--device``, where they will run (``yolofastest_torch.export.pt2``).  The
+StableHLO text ``forward.mlir`` and ``detect.mlir`` (for ``cpp/build/yf_shlo``)
+is JAX's alone and is not written.
 ``convert`` writes a zoo-layout ``.npz`` from a ``.pth`` (or ``.npz``, or a
 port checkpoint directory), an ncnn pair or an ``.onnx``.
 """
@@ -34,12 +38,14 @@ _IDENTITY_BN_NOTE = ("note: batch norms are identity-lifted from the folded arti
 
 def add_export_parsers(sub) -> None:
     x = sub.add_parser("export", help="export ONNX + ncnn + Caffe + TorchScript + native .yfb "
-                                           "(+ the int8 files with --calib-data)")
+                                           "+ the .pt2 programs (+ the int8 files with "
+                                           "--calib-data)")
     add_config_args(x)
     x.add_argument("--weights", required=True,
                    help=".npz zoo file, reference .pth, .onnx or a port checkpoint directory")
     x.add_argument("--out", required=True)
-    x.add_argument("--batch", type=int, default=1, help="batch of the traced model.pt")
+    x.add_argument("--batch", type=int, default=1,
+                   help="batch of the traced model.pt and of the .pt2 programs")
     x.add_argument("--arch", default="fastest", choices=["fastest", "lite"],
                    help="model architecture; every artifact is emitted for both (lite = "
                         "single-head topology)")
@@ -58,7 +64,8 @@ def add_export_parsers(sub) -> None:
     x.add_argument("--calib-percentile", type=float, default=99.99,
                    help="clip percentile for --calib-method percentile")
     x.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="where the calibration and QAT run (the writers run on the host)")
+                   help="where the calibration and QAT run and the .pt2 programs are "
+                        "exported to run (the other writers run on the host)")
     x.set_defaults(fn=cmd_export)
 
     c = sub.add_parser("convert",
@@ -76,9 +83,12 @@ def add_export_parsers(sub) -> None:
 
 
 def cmd_export(args) -> int:
-    from yolofastest_torch.export import (export_caffe, export_ncnn, export_ncnn_table,
-                                          export_onnx, export_onnx_detect, export_onnx_qdq,
-                                          export_torchscript, save_native_weights)
+    from yolofastest_torch.export import (export_caffe, export_detect_pipeline,
+                                          export_folded_forward, export_int8_forward,
+                                          export_ncnn, export_ncnn_table, export_onnx,
+                                          export_onnx_detect, export_onnx_qdq,
+                                          export_torchscript, save_exported,
+                                          save_native_weights)
     from yolofastest_torch.models import fold_batchnorm
     from yolofastest_torch.quant import calibrate, qat_finetune, quantize_weights
 
@@ -150,12 +160,20 @@ def cmd_export(args) -> int:
     export_torchscript(folded, cfg.io.input_hw, out("model.pt"), batch=args.batch,
                        arch=graph_arch)
     print("wrote", out("model.pt"))
-    jax_only = "forward.stablehlo, forward.mlir, detect.stablehlo and detect.mlir are"
+    programs = [("forward.pt2", lambda: export_folded_forward(
+                    folded, cfg, batch=args.batch, arch=args.arch, device=args.device)),
+                ("detect.pt2", lambda: export_detect_pipeline(
+                    variables, cfg, batch=args.batch, arch=args.arch, device=args.device))]
     if cal is not None:
-        jax_only = ("forward.stablehlo, forward.mlir, detect.stablehlo, detect.mlir and "
-                    "forward_int8.stablehlo are")
-    print(f"not written: {jax_only} JAX programs (python -m yolofastest_tpu export writes "
-          "them)")
+        # int8_src/act_scales carry the QAT refinement when --qat-steps ran
+        programs.append(("forward_int8.pt2", lambda: export_int8_forward(
+            variables, cfg, cal, batch=args.batch, arch=args.arch, folded=int8_src,
+            act_scales=act_scales, device=args.device)))
+    for name, export in programs:
+        save_exported(export(), out(name))
+        print("wrote", out(name))
+    print("not written: forward.mlir and detect.mlir are JAX programs (StableHLO text for "
+          "cpp/build/yf_shlo; python -m yolofastest_tpu export writes them)")
     return 0
 
 

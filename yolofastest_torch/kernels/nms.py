@@ -12,7 +12,9 @@ tensors on the CPU.  The plain version follows the kernel's formulation
 counts), so the CPU tests reach its index logic; :func:`nms_keep_plain`, the
 greedy loop, stays as the independent oracle of the mask.
 
-All give the same bits: the kernel computes the IOU of
+Both public functions call registered operators (``yolofastest::nms_packed``,
+``yolofastest::nms_keep``) with fake versions, so ``torch.export`` records
+the NMS as one node.  All give the same bits: the kernel computes the IOU of
 ``ops/boxes.py::iou_pairwise`` with the same float32 operations in the same
 order and compares it against the float32 threshold, as torch compares a
 float32 tensor against a Python float; the packed rows are copies.
@@ -134,8 +136,7 @@ _DTYPES = {"boxes": torch.float32, "conf": torch.float32, "cls_score": torch.flo
 
 
 def _check(boxes, cls_idx, valid, conf=None, cls_score=None):
-    """Shapes, dtypes and the device the kernel and its plain versions take;
-    returns the device type."""
+    """Shapes, dtypes and the device the kernel and its plain versions take."""
     if boxes.ndim != 3 or boxes.shape[-1] != 4 or valid.shape != boxes.shape[:2] or any(
             t is not None and t.shape != valid.shape for t in (cls_idx, conf, cls_score)):
         shapes = [tuple(t.shape) for t in (boxes, conf, cls_score, cls_idx, valid) if t is not None]
@@ -151,10 +152,8 @@ def _check(boxes, cls_idx, valid, conf=None, cls_score=None):
             raise TypeError(f"{name} must be {_DTYPES[name]}, not {t.dtype}")
         if t is not None and t.device != valid.device:
             raise ValueError(f"{name} is on {t.device}, valid on {valid.device}")
-    kind = valid.device.type
-    if kind not in ("cpu", "cuda"):
+    if valid.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"NMS runs on cuda (kernel) or cpu (plain version), not {valid.device}")
-    return kind
 
 
 def _launch(boxes, conf, cls_score, cls_idx, valid, iou_thre: float, max_det: int,
@@ -183,6 +182,45 @@ def _launch(boxes, conf, cls_score, cls_idx, valid, iou_thre: float, max_det: in
     return packed, keep
 
 
+def _keep_launch(boxes, cls_idx, valid, iou_thre: float, pixel_offset: float):
+    """The keep mask from one launch with one packed place an image, which is
+    thrown away, so a view of the boxes stands in for conf and cls_score."""
+    x1 = boxes[..., 0]
+    return _launch(boxes, x1, x1, cls_idx, valid, iou_thre, 1, pixel_offset)[1]
+
+
+# --------------------------------------------------------- registered operators
+# ``yolofastest::nms_packed`` and ``yolofastest::nms_keep``: the kernel on the
+# card, the plain versions on the CPU, and fake (shape-only) versions, so that
+# torch.export records the NMS as one node and a saved program launches the
+# kernel.  No autograd formula: nothing differentiates through the NMS.
+_OPS = torch.library.Library("yolofastest", "FRAGMENT")
+_OPS.define("nms_packed(Tensor boxes, Tensor conf, Tensor cls_score, Tensor cls_idx, "
+            "Tensor valid, float iou_thre, int max_det, float pixel_offset) -> (Tensor, Tensor)")
+_OPS.define("nms_keep(Tensor boxes, Tensor cls_idx, Tensor valid, float iou_thre, "
+            "float pixel_offset) -> Tensor")
+_OPS.impl("nms_packed", _launch, "CUDA")
+_OPS.impl("nms_packed", nms_packed_plain, "CPU")
+_OPS.impl("nms_keep", _keep_launch, "CUDA")
+_OPS.impl("nms_keep", nms_keep_plain, "CPU")
+
+
+@torch.library.register_fake("yolofastest::nms_packed", lib=_OPS)
+def _nms_packed_fake(boxes, conf, cls_score, cls_idx, valid, iou_thre, max_det, pixel_offset):
+    b, k = valid.shape
+    return (boxes.new_empty((b, min(k, max_det), 8), dtype=torch.float32),
+            valid.new_empty((b, k), dtype=torch.bool))
+
+
+@torch.library.register_fake("yolofastest::nms_keep", lib=_OPS)
+def _nms_keep_fake(boxes, cls_idx, valid, iou_thre, pixel_offset):
+    return valid.new_empty(valid.shape, dtype=torch.bool)
+
+
+NMS_PACKED_OP = torch.ops.yolofastest.nms_packed.default
+NMS_KEEP_OP = torch.ops.yolofastest.nms_keep.default
+
+
 def nms_packed(boxes, conf, cls_score, cls_idx, valid, iou_thre: float, max_det: int,
                pixel_offset: float = 0.0):
     """Batched class-aware greedy NMS, compacted kept-first.
@@ -200,26 +238,22 @@ def nms_packed(boxes, conf, cls_score, cls_idx, valid, iou_thre: float, max_det:
     Returns ``(packed, keep)``: (B, min(K, max_det), 8) float32 rows
     ``(x1, y1, x2, y2, conf, cls_score, cls_idx, keep)``, the kept rows
     first and then the others, each group in index order, and the (B, K)
-    bool keep mask.  One launch of the CUDA kernel for tensors on the card;
-    :func:`nms_packed_plain` only for tensors on the CPU.  K is at most
-    :data:`MAX_ROWS`.
+    bool keep mask.  The operator ``yolofastest::nms_packed``: one launch of
+    the CUDA kernel for tensors on the card; :func:`nms_packed_plain` only
+    for tensors on the CPU.  K is at most :data:`MAX_ROWS`.
     """
-    kind = _check(boxes, cls_idx, valid, conf, cls_score)
+    _check(boxes, cls_idx, valid, conf, cls_score)
     if max_det < 1:
         raise ValueError(f"max_det must be at least 1, not {max_det}")
-    if kind == "cpu":
-        return nms_packed_plain(boxes, conf, cls_score, cls_idx, valid, iou_thre, max_det,
-                                pixel_offset)
-    return _launch(boxes, conf, cls_score, cls_idx, valid, iou_thre, max_det, pixel_offset)
+    return NMS_PACKED_OP(boxes, conf, cls_score, cls_idx, valid, float(iou_thre), int(max_det),
+                         float(pixel_offset))
 
 
 def nms_keep(boxes, cls_idx, valid, iou_thre: float, pixel_offset: float = 0.0):
     """Greedy class-aware keep mask for a batch: (B, K, 4), (B, K), (B, K) ->
-    (B, K) bool, as :func:`nms_packed` takes them.  For tensors on the card,
-    one launch of :func:`nms_packed` with one packed place an image, which is
-    thrown away, so a view of the boxes stands in for conf and cls_score;
-    :func:`nms_keep_plain` only for tensors on the CPU."""
-    if _check(boxes, cls_idx, valid) == "cpu":
-        return nms_keep_plain(boxes, cls_idx, valid, iou_thre, pixel_offset)
-    x1 = boxes[..., 0]
-    return _launch(boxes, x1, x1, cls_idx, valid, iou_thre, 1, pixel_offset)[1]
+    (B, K) bool, as :func:`nms_packed` takes them.  The operator
+    ``yolofastest::nms_keep``: for tensors on the card, one launch of the
+    NMS kernel with one packed place an image; :func:`nms_keep_plain` only
+    for tensors on the CPU."""
+    _check(boxes, cls_idx, valid)
+    return NMS_KEEP_OP(boxes, cls_idx, valid, float(iou_thre), float(pixel_offset))

@@ -14,9 +14,12 @@ package:
   and :func:`fused_res_chain_nhwc`.  The folded forward runs all six chains
   through this one.
 
-Each wrapper launches the kernel for a CUDA tensor and takes the plain
-PyTorch version (:func:`res_chain_cf_plain`, :func:`res_chain_rows_plain`)
-only for a CPU tensor; anything else raises.  The plain version has the
+Each wrapper calls a registered operator, ``yolofastest::res_chain_cf`` or
+``yolofastest::res_chain_rows`` (:data:`CHAIN_OPS`), which launches the
+kernel for a CUDA tensor and takes the plain PyTorch version
+(:func:`res_chain_cf_plain`, :func:`res_chain_rows_plain`) only for a CPU
+tensor; anything else raises.  The operators have fake (shape-only)
+versions, so ``torch.export`` records each chain as one node.  The plain version has the
 kernel's rounding points: sums in fp32, ``h1``, ``h2`` and ``y`` rounded to
 the input dtype, weights cast to the input dtype, biases kept in fp32.
 
@@ -276,14 +279,48 @@ def _prepare(x, c: int, total: int, hw, weights):
         for i, t in enumerate(weights))
 
 
+# --------------------------------------------------------- registered operators
+# The two layouts as operators of the ``yolofastest`` namespace: the kernel on
+# the card, the plain version on the CPU, and a fake (shape-only) version, so
+# that torch.export records a chain as one node and a saved program launches
+# the kernel.  No autograd formula: every caller runs under no_grad on folded
+# weights.
+_OPS = torch.library.Library("yolofastest", "FRAGMENT")
+_CHAIN_ARGS = ("(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, Tensor w3, Tensor b3, "
+               "int h, int w) -> Tensor")
+
+
+def _chain_cuda(rows: bool):
+    def impl(x, w1, b1, w2, b2, w3, b3, h, w):
+        return _launch(rows, x.contiguous(), w1, b1, w2, b2, w3, b3, (h, w))
+    return impl
+
+
+def _chain_cpu(plain):
+    def impl(x, w1, b1, w2, b2, w3, b3, h, w):
+        return plain(x, w1, b1, w2, b2, w3, b3, (h, w))
+    return impl
+
+
+def _chain_fake(x, w1, b1, w2, b2, w3, b3, h, w):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+for _name, _rows, _plain in (("res_chain_cf", False, res_chain_cf_plain),
+                             ("res_chain_rows", True, res_chain_rows_plain)):
+    _OPS.define(_name + _CHAIN_ARGS)
+    _OPS.impl(_name, _chain_cuda(_rows), "CUDA")
+    _OPS.impl(_name, _chain_cpu(_plain), "CPU")
+    torch.library.register_fake(f"yolofastest::{_name}", _chain_fake, lib=_OPS)
+CHAIN_OPS = {False: torch.ops.yolofastest.res_chain_cf.default,
+             True: torch.ops.yolofastest.res_chain_rows.default}
+
+
 def _dispatch(rows: bool, x, weights, hw):
-    if x.device.type == "cpu":
-        plain = res_chain_rows_plain if rows else res_chain_cf_plain
-        return plain(x, *weights, hw)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"res chain runs on cuda (kernel) or cpu (plain "
                            f"version), not {x.device}")
-    return _launch(rows, x.contiguous(), *weights, hw)
+    return CHAIN_OPS[rows](x, *weights, int(hw[0]), int(hw[1]))
 
 
 # ---------------------------------------------------------- public functions
