@@ -33,7 +33,12 @@ fresh process that imports only ``yolofastest_torch.kernels``: golden
 34/34 with 6 chain and 1 NMS launches a call, the folded and int8 heads
 against the Detector's, B=1 and B=64 times beside ``run_packed``, the host
 cost of the chain operator's dispatch, and the generic ONNX exporter's file
-of the card-traced forward), int8 (the shipped int8
+of the card-traced forward), mlir (the StableHLO text of those programs,
+and of a 512x640 detect program, run on the host CPU by the unchanged C++
+consumer ``yf_shlo`` built from the checkout: forward.mlir against the
+kernel-run folded forward within 2e-4, detect.mlir golden 34/34, and at
+512x640 equal to ``detect.pt2`` on the card; its host ms beside the host
+CPU), int8 (the shipped int8
 artifacts through both int8 backends: golden recall, rows and heads against
 the CPU port, every layer's integer accumulators against exact int64 ones,
 calibration on the card against the CPU with a cache written and read,
@@ -802,7 +807,7 @@ def _host_us_per_call(fn, reps: int = 200) -> float:
     return us
 
 
-def programs_path(card, counted) -> dict:
+def programs_path(card, counted, mlir_dir) -> dict:
     """The programs phase on the card: ``export --calib-data <8 golden
     frames> --device cuda`` on the 256x320 zoo (the seconds of each ``.pt2``
     from its ``wrote`` lines); ``forward.pt2``, ``detect.pt2`` and
@@ -818,9 +823,12 @@ def programs_path(card, counted) -> dict:
     registered operator beside the ctypes launch it wraps; and
     ``export_torch_onnx`` of the folded forward traced with CUDA tensors (the
     chain operator inlined through its plain version), run by
-    tools/onnx_check.py, within 2e-4 of the kernel-run heads.  One JSON
-    line; returns the launch counts."""
+    tools/onnx_check.py, within 2e-4 of the kernel-run heads.  The
+    command's ``forward.mlir`` and ``detect.mlir`` are copied into
+    ``mlir_dir`` for the mlir phase.  One JSON line; returns the launch
+    counts."""
     import contextlib
+    import shutil
     import tempfile
 
     import cv2
@@ -865,8 +873,11 @@ def programs_path(card, counted) -> dict:
         export_s = time.perf_counter() - c0
         per_file = stamped.seconds_per_file(c0)
         files = sorted(os.listdir(out))
-        check(rc == 0 and {"forward.pt2", "detect.pt2", "forward_int8.pt2"} <= set(files),
+        check(rc == 0 and {"forward.pt2", "detect.pt2", "forward_int8.pt2", "forward.mlir",
+                           "detect.mlir"} <= set(files) and "forward_int8.mlir" not in files,
               f"programs: export rc {rc}, files {files}")
+        for name in ("forward.mlir", "detect.mlir"):
+            shutil.copy(os.path.join(out, name), os.path.join(mlir_dir, name))
         # the same three files in a fresh process with only the kernels' package
         np.save(os.path.join(tmp, "frames.npy"), pre)
         np.save(os.path.join(tmp, "x.npy"), x.cpu().numpy())
@@ -989,7 +1000,8 @@ def programs_path(card, counted) -> dict:
                 t["b64_images_per_s"].append(_images_per_s(b64, 64, 20))
 
     emit("programs", card=card, res="256x320", export_seconds=export_s,
-         seconds_per_file={k: v for k, v in per_file.items() if k.endswith(".pt2")},
+         seconds_per_file={k: v for k, v in per_file.items()
+                           if k.endswith(".pt2") or k.endswith(".mlir")},
          load_seconds=load_s, export_launches=counts["export"],
          detect_pt2={"matched": matched, "reference": int(fx["boxes"].shape[0]),
                      "notes": notes[:5], "launches_per_call": detect_counts[0],
@@ -1043,6 +1055,142 @@ def programs_path(card, counted) -> dict:
     check(onnx.returncode == 0 and "ONNX_CONSUMED_OK" in onnx.stdout and onnx_err is not None
           and onnx_err <= 2e-4, f"programs: generic ONNX {onnx.stderr[-400:]} err {onnx_err}")
     return counts
+
+
+def mlir_path(card, counted, mlir_dir, shlo) -> dict:
+    """The mlir phase: the StableHLO text programs run by the unchanged
+    native consumer ``cpp/runner/shlo_runner.cpp`` (``yf_shlo``, built from
+    the checkout with the host compiler, ``shlo``: the thread building it)
+    on the host CPU.  ``forward.mlir`` and ``detect.mlir`` of the programs
+    phase's ``export --device cuda`` (B=1): forward.mlir on 4 golden frames
+    at 256x320 within 2e-4 of the folded forward on the card (chain kernel,
+    fp32 without TF32; JAX's rule for its own text), detect.mlir on the 20
+    golden frames (34/34 by the strict rule); then a 512x640 detect program
+    exported on the card at B=4, written as ``detect.pt2`` and as text: the
+    text through yf_shlo against the loaded ``detect.pt2`` on the card on 4
+    golden frames (counts and classes equal, boxes within 1 px, conf and
+    cls_score within 1e-3).  yf_shlo's ``avg_time`` (host ms) beside the
+    host CPU.  The card-side references launch 6 K2 and 1 NMS a call;
+    yf_shlo launches nothing on the card.  One JSON line; returns the
+    launch counts."""
+    import tempfile
+
+    import torch
+
+    from yolofastest_torch.configs import get_config
+    from yolofastest_torch.export import (export_detect_pipeline, load_exported, save_exported,
+                                          save_exported_mlir)
+    from yolofastest_torch.inference import detections_to_lists
+    from yolofastest_torch.models import (fold_batchnorm, folded_apply, load_variables,
+                                          torch_params_from_folded)
+    from yolofastest_torch.native import run_shlo
+    from yolofastest_torch.ops import normalize
+    from yolofastest_torch.utils.device import exact_fp32
+
+    t0 = time.perf_counter()
+    shlo.join()
+    check(shlo.error is None, f"mlir: yf_shlo build failed: {shlo.error}")
+    runner, build = shlo.result
+    keys = ("boxes", "cls_idx", "cls_score", "conf", "count", "valid")  # JAX's flat order
+    counts, avg_ms = {}, {}
+    fx = {res: np.load(os.path.join(FIXTURES, f"golden_{res}.npz"))
+          for res in ("256x320", "512x640")}
+    pre = fx["256x320"]["pre_imgs"]
+
+    # forward.mlir against the folded forward over the chain kernel
+    zoo = load_variables(os.path.join(WEIGHTS, "yolofastest_256x320.npz"))
+    params = torch_params_from_folded(fold_batchnorm(zoo), "cuda")
+    x = normalize(torch.from_numpy(pre[:4]).cuda())[..., None]
+    with torch.no_grad(), exact_fp32():
+        ref, counts["folded_forward"] = counted(lambda: folded_apply(params, x))
+    fwd_err, fwd_ms = 0.0, []
+    for i in range(4):
+        heads, ms = run_shlo(os.path.join(mlir_dir, "forward.mlir"), x[i:i + 1].cpu().numpy(),
+                             runner=runner)
+        fwd_ms.append(ms)
+        fwd_err = max([fwd_err] + [float(np.abs(h - r[i:i + 1].cpu().numpy()).max())
+                                   for h, r in zip(heads, ref)])
+    avg_ms["forward_256x320_b1"] = float(np.median(fwd_ms))
+
+    # detect.mlir on the 20 golden frames, one at a time (the program's B=1)
+    rows, det_ms = [], []
+    for i in range(pre.shape[0]):
+        res, ms = run_shlo(os.path.join(mlir_dir, "detect.mlir"), pre[i:i + 1], runner=runner)
+        det_ms.append(ms)
+        rows += detections_to_lists(dict(zip(keys, res)))
+    matched, notes = golden_match(rows, fx["256x320"]["boxes"], pre.shape[0])
+    avg_ms["detect_256x320_b1"] = float(np.median(det_ms))
+
+    # a 512x640 detect program at B=4: the text against the loaded .pt2 on the card
+    pre512 = fx["512x640"]["pre_imgs"][:4]
+    with tempfile.TemporaryDirectory(prefix="yf_mlir_") as tmp:
+        c0 = time.perf_counter()
+        program = export_detect_pipeline(
+            load_variables(os.path.join(WEIGHTS, "yolofastest_512x640.npz")),
+            get_config("512x640"), batch=4, device="cuda")
+        save_exported(program, os.path.join(tmp, "detect.pt2"))
+        save_exported_mlir(program, os.path.join(tmp, "detect.mlir"))
+        lower_s = time.perf_counter() - c0
+        want, counts["detect_pt2_512x640"] = counted(lambda: load_exported(
+            os.path.join(tmp, "detect.pt2")).call(torch.from_numpy(pre512).cuda()))
+        got, avg_ms["detect_512x640_b4"] = run_shlo(os.path.join(tmp, "detect.mlir"), pre512,
+                                                    runner=runner)
+    want = {k: v.cpu().numpy() for k, v in want.items()}
+    got = dict(zip(keys, got))
+    cmp512 = {"count_equal": bool(np.array_equal(got["count"], want["count"])),
+              "count": want["count"].tolist(), "cls_idx_equal": True, "boxes_max_px": 0.0,
+              "conf_max_abs": 0.0, "cls_score_max_abs": 0.0}
+    for b in range(4):
+        n = int(want["count"][b])
+        cmp512["cls_idx_equal"] &= bool(np.array_equal(got["cls_idx"][b, :n],
+                                                       want["cls_idx"][b, :n]))
+        for key, field in (("boxes", "boxes_max_px"), ("conf", "conf_max_abs"),
+                           ("cls_score", "cls_score_max_abs")):
+            if n:
+                cmp512[field] = max(cmp512[field],
+                                    float(np.abs(got[key][b, :n] - want[key][b, :n]).max()))
+    emit("mlir", card=card, host_cpu=host_cpu(), yf_shlo_build=build,
+         forward_256x320={"frames": 4, "heads_max_abs_err": fwd_err, "tolerance": 2e-4,
+                          "reference": "folded forward on the card (chain kernel), fp32 "
+                                       "without TF32", "launches": counts["folded_forward"]},
+         detect_256x320={"matched": matched, "reference": int(fx["256x320"]["boxes"].shape[0]),
+                         "notes": notes[:5]},
+         detect_512x640={**cmp512, "frames": 4, "export_and_lower_seconds": lower_s,
+                         "launches_of_detect_pt2": counts["detect_pt2_512x640"]},
+         yf_shlo_avg_ms=avg_ms,
+         avg_ms_note="yf_shlo's avg_time: host ms a call on the host CPU (median over the "
+                     "calls; the interpreter's own OpenMP threads), not the card's",
+         seconds=time.perf_counter() - t0)
+    want1 = {"res_chain_cf": 0, "res_chain_rows": 6, "nms": 1}
+    check(fwd_err <= 2e-4 and counts["folded_forward"] == {**want1, "nms": 0},
+          f"mlir: forward.mlir {fwd_err} from the folded forward, launches "
+          f"{counts['folded_forward']}")
+    check(matched == fx["256x320"]["boxes"].shape[0] and not notes,
+          f"mlir: detect.mlir golden {matched} {notes[:3]}")
+    check(cmp512["count_equal"] and cmp512["cls_idx_equal"] and cmp512["boxes_max_px"] <= 1.0
+          and cmp512["conf_max_abs"] <= 1e-3 and cmp512["cls_score_max_abs"] <= 1e-3
+          and counts["detect_pt2_512x640"] == want1, f"mlir: 512x640 detect.mlir {cmp512}")
+    return counts
+
+
+class _Thread:
+    """A function run in a thread; ``result`` or ``error`` once joined."""
+
+    def __init__(self, fn):
+        import threading
+
+        self.result = self.error = None
+        self._thread = threading.Thread(target=self._run, args=(fn,), daemon=True)
+        self._thread.start()
+
+    def _run(self, fn):
+        try:
+            self.result = fn()
+        except Exception as e:  # noqa: BLE001 (reported by the phase that joins)
+            self.error = repr(e)
+
+    def join(self):
+        self._thread.join()
 
 
 def int8_path(card, counted) -> dict:
@@ -1363,7 +1511,7 @@ def quant2_path(card, counted) -> dict:
     expect = sorted(["model.yfb", "model_int8.yfb", "model.onnx", "detect.onnx", "model.param",
                      "model.bin", "model.prototxt", "model.caffemodel", "model_int8.onnx",
                      "model.table", "model.pt", "forward.pt2", "detect.pt2",
-                     "forward_int8.pt2"])
+                     "forward_int8.pt2", "forward.mlir", "detect.mlir"])
     with tempfile.TemporaryDirectory(prefix="yf_quant2_") as tmp:
         calib, out = os.path.join(tmp, "calib"), os.path.join(tmp, "out")
         os.makedirs(calib)
@@ -1407,7 +1555,7 @@ def quant2_path(card, counted) -> dict:
                             and all(np.isfinite(y[k]).all() for k in y.files))
     lines = printed.getvalue().splitlines()
     export = {"rc": rc, "files": files, "expected": expect, "seconds": export_s,
-              "qat_line": lines[0] if lines else "", "not_written_line": lines[-1] if lines
+              "qat_line": lines[0] if lines else "", "last_line": lines[-1] if lines
               else "", "scales_equal_own_calibration": scales_equal,
               "scaled_layers": len(scale_keys), "table_multipliers_equal": bool(table_ok),
               "table_layers": table_layers,
@@ -1435,7 +1583,7 @@ def quant2_path(card, counted) -> dict:
         check(c["res_chain_rows"] == 6 * batches_n and c["res_chain_cf"] == 0 and c["nms"] == 0,
               f"quant2 {key} launches {c}: want 6 K2 a teacher batch, none in the student")
     check(rc == 0 and files == expect, f"quant2 export: rc {rc}, files {files}")
-    check("forward.mlir and detect.mlir" in export["not_written_line"]
+    check(export["last_line"] == f"wrote {os.path.join(out, 'forward_int8.pt2')}"
           and export["qat_line"].startswith("QAT distillation: loss"), f"quant2 export: {export}")
     check(scales_equal and table_ok and table_layers > 0, f"quant2 export scales: {export}")
     check(onnx.returncode == 0 and "ONNX_CONSUMED_OK" in onnx.stdout and heads_ok,
@@ -2421,6 +2569,10 @@ def main() -> int:
          device_count=torch.cuda.device_count(), python=sys.version.split()[0])
 
     # ------------------------------------------------------------- 2 build
+    # yf_shlo (the StableHLO text consumer, host compiler) builds beside the kernels
+    from yolofastest_torch.native import find_shlo_runner
+
+    shlo = _Thread(find_shlo_runner)
     seconds = _build.build()
     ptxas = [ln.strip() for log in _build.BUILD_LOGS.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
@@ -3094,7 +3246,13 @@ def main() -> int:
     export_path(card, counted)
 
     # ---------------------------------- the serialised programs (.pt2, ONNX)
-    programs_path(card, counted)
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="yf_mlir_") as mlir_dir:
+        programs_path(card, counted, mlir_dir)
+
+        # ------------------- the StableHLO text programs through yf_shlo (host)
+        mlir_path(card, counted, mlir_dir, shlo)
 
     # ------------------------------------------------------- int8 path
     int8_path(card, counted)

@@ -27,11 +27,19 @@ the same.
   and ``tests/test_torch_spatial.py``;
 * :func:`spatial_processes`: four gloo ranks of ``tests/_torch_ranks.py``
   ``spatial_rank``, read by ``tests/test_torch_spatial.py``;
-* :func:`port_exports`: a process that runs four ``export`` commands (each
-  writes the ``.pt2`` programs, ~5-15 s), read by
+* :func:`port_exports`: three processes that run four ``export`` commands
+  (each writes the ``.pt2`` programs and their StableHLO text, ~10-20 s;
+  ``fastest`` then ``qat`` in one, ``missing`` and ``calib`` one each, so
+  that ``tests/test_torch_export.py`` waits for none of them), read by
   ``tests/test_torch_export.py`` and ``tests/test_torch_quant_tools.py``,
   and one that runs ``tests/_torch_programs.py``'s exporter of the ``.pt2``
-  programs and generic ONNX files, read by ``tests/test_torch_programs.py``.
+  programs and generic ONNX files, read by ``tests/test_torch_programs.py``;
+  the ``fastest`` command's ``forward.mlir`` and ``detect.mlir`` are read by
+  ``tests/test_torch_mlir.py`` too;
+* :func:`mlir_programs`: a process of ``tests/_torch_mlir.py`` ``run``
+  (``yf_shlo`` found or built, the seeded forwards, the NMS and sort
+  programs written as StableHLO text and run through it, the refused
+  lowerings tried, ~20 s), read by ``tests/test_torch_mlir.py``.
 """
 
 import json
@@ -56,11 +64,19 @@ SPATIAL_TESTS = ("test_halo_rows_match_slicing", "test_row_window_conv_matches_u
                  "test_spatial_dryrun_four_processes", "test_mesh_places_and_halo_collectives")
 SPATIAL_FRAMES = 4  # golden frames through the sharded detect pipeline
 EXPORT_COMMANDS_TESTS = ("test_torchscript_heads_match_jax", "test_cli_export_writes_jax_files",
-                         "test_cli_export_refusals", "test_cli_export_int8_files")
+                         "test_cli_export_refusals", "test_cli_export_int8_files",
+                         "test_cli_forward_mlir_matches_jax", "test_cli_detect_mlir_matches_jax",
+                         "test_texts_are_valid_stablehlo")
+MLIR_TESTS = ("test_forward_mlir_matches_port_and_jax", "test_nms_mlir_matches_port_and_jax",
+              "test_sort_keeps_ties_in_input_order", "test_lowering_refuses_unsupported_ops",
+              "test_texts_are_valid_stablehlo")
 PROGRAMS_TESTS = ("test_exported_graphs_record_the_kernels", "test_forward_pt2_matches_jax",
                   "test_detect_pt2_matches_jax", "test_int8_pt2_matches_jax",
                   "test_detect_pt2_in_a_fresh_process", "test_full_model_generic_export_64x96")
 NICE = 19
+# the export commands' processes: each command's readers wait for its group only
+COMMAND_GROUPS = {"commands": ("fastest", "qat"), "commands_missing": ("missing",),
+                  "commands_calib": ("calib",)}
 _STARTED = {}  # name -> what its fixture yields
 
 
@@ -130,11 +146,11 @@ def spatial_processes(request, tmp_path_factory):
 
 
 class Exports:
-    """Two processes of ``tests/_torch_programs.py`` ``run_exports``: one
-    runs the ``export`` commands (``argvs``, by name; :meth:`command` waits
-    for one), the other the programs' exporter (:meth:`programs` waits for
-    it).  Each pays the interpreter's start and the first trace's set-up
-    once."""
+    """Processes of ``tests/_torch_programs.py`` ``run_exports``: three run the
+    ``export`` commands (``argvs``, by name, split by :data:`COMMAND_GROUPS`;
+    :meth:`command` waits for one), one the programs' exporter
+    (:meth:`programs` waits for it).  Each pays the interpreter's start and
+    the first trace's set-up once."""
 
     def __init__(self, root, argvs, programs: bool):
         from tests._torch_programs import run_exports
@@ -142,7 +158,11 @@ class Exports:
         self.root, self.argvs = root, argvs
         # the commands' readers come ~40 s into a run, the programs' ~90 s: the
         # programs' exporter runs beside the reference workers
-        jobs = {"commands": (argvs, str(root), False, 0)} if argvs else {}
+        jobs = {}
+        for group, names in COMMAND_GROUPS.items():
+            mine = {n: argvs[n] for n in names if n in argvs}
+            if mine:
+                jobs[group] = (mine, str(root), False, 0)
         if programs:
             jobs["programs"] = ({}, str(root), True, 10)
         ctx = multiprocessing.get_context("spawn")
@@ -156,7 +176,8 @@ class Exports:
         path = self.root / f"{name}.json"
         deadline = time.monotonic() + timeout
         while not path.exists():
-            assert self.procs["commands"].is_alive() or path.exists(), self._error()
+            group = next(g for g, names in COMMAND_GROUPS.items() if name in names)
+            assert self.procs[group].is_alive() or path.exists(), self._error()
             assert time.monotonic() < deadline, f"export command {name} still running"
             time.sleep(0.1)
         with open(path) as f:
@@ -197,6 +218,27 @@ def port_exports(request, tmp_path_factory):
         if proc.is_alive():
             proc.kill()
         proc.join()
+
+
+@pytest.fixture(scope="session")
+def mlir_programs(request, tmp_path_factory):
+    """``(process, directory)`` of ``tests/_torch_mlir.py`` ``run`` (or None
+    where none of its readers is selected)."""
+    if not _selected(request, MLIR_TESTS):
+        yield None
+        return
+    if "mlir" not in _STARTED:
+        from tests._torch_mlir import run
+
+        root = tmp_path_factory.mktemp("mlir")
+        proc = multiprocessing.get_context("spawn").Process(target=run, args=(str(root),))
+        proc.start()
+        _STARTED["mlir"] = (proc, root)
+    proc, root = _STARTED["mlir"]
+    yield proc, root
+    if proc.is_alive():
+        proc.kill()
+    proc.join()
 
 
 def _export_argvs(root):

@@ -56,12 +56,12 @@ pytestmark = pytest.mark.usefixtures("jax_refs")
 
 ARCHS = {"fastest": ("256x320", "256x320", "yolofastest"),
          "lite": ("lite_256x320", "lite-256x320", "yolofastest-lite")}  # zoo, config, graph
-# JAX export's files the port writes too, and its serialised programs, which the
-# port writes as .pt2; JAX's StableHLO text files are not written
+# JAX export's files the port writes too, its serialised programs, which the
+# port writes as .pt2, and their StableHLO text, which both write
 JAX_EXPORT_FILES = ["model.yfb", "model_int8.yfb", "model.onnx", "detect.onnx", "model.param",
                     "model.bin", "model.prototxt", "model.caffemodel", "model.pt"]
 PROGRAM_FILES = ["forward.pt2", "detect.pt2"]
-JAX_PROGRAM_FILES = ["forward.mlir", "detect.mlir"]
+JAX_PROGRAM_FILES = ["forward.mlir", "detect.mlir"]  # written by export/mlir.py
 
 
 def _golden_x(n):
@@ -361,14 +361,13 @@ def test_torchscript_heads_match_jax(exports, cli_export, arch):
 
 # ----------------------------------------------------------------- commands
 def test_cli_export_writes_jax_files(exports, cli_export):
-    """export: JAX's file list with the programs as .pt2, less the StableHLO
-    text (and a line saying so), the same bytes as the JAX writers' (ONNX:
-    the producer name aside)."""
+    """export: JAX's file list with the programs as .pt2, and their
+    StableHLO text, each after its program, as the JAX command writes it;
+    the same bytes as the JAX writers' (ONNX: the producer name aside)."""
     d, printed = cli_export
-    assert sorted(os.listdir(d)) == sorted(JAX_EXPORT_FILES + PROGRAM_FILES)
-    assert printed.splitlines()[-1].startswith(
-        "not written: forward.mlir and detect.mlir are JAX programs")
-    assert all(f"wrote {d / name}" in printed for name in PROGRAM_FILES)
+    assert sorted(os.listdir(d)) == sorted(JAX_EXPORT_FILES + PROGRAM_FILES + JAX_PROGRAM_FILES)
+    assert printed.splitlines()[-4:] == [f"wrote {d / name}" for name in (
+        "forward.pt2", "forward.mlir", "detect.pt2", "detect.mlir")]
     theirs = exports["fastest"]["root"] / "jax"
     for name in JAX_EXPORT_FILES[:-1]:
         if name.endswith(".onnx"):
@@ -382,9 +381,10 @@ def test_cli_export_refusals(exports, port_exports, tmp_path):  # noqa: F811
     commands run by ``tests/_background.py``): a missing --calib-data
     directory and --qat-steps without calibration each print their line and
     still write the fp files and programs, without the int8 extras;
-    --calib-data with an image writes them and forward_int8.pt2; the line of
-    JAX programs not written names the StableHLO text alone; a lite ONNX
-    under --arch fastest stops as the JAX command does."""
+    --calib-data with an image writes them and forward_int8.pt2; the
+    StableHLO text of the fp programs is written in both, none of the int8
+    one (as in JAX); a lite ONNX under --arch fastest stops as the JAX
+    command does."""
     from yolofastest_torch.cli import main
 
     def run(name):
@@ -394,18 +394,19 @@ def test_cli_export_refusals(exports, port_exports, tmp_path):  # noqa: F811
         return (pathlib.Path(argv[argv.index("--out") + 1]), argv[argv.index("--calib-data") + 1],
                 out.splitlines())
 
-    fp_files = ["detect.onnx", "detect.pt2", "forward.pt2", "model.bin", "model.caffemodel",
-                "model.onnx", "model.param", "model.prototxt", "model.pt", "model.yfb",
-                "model_int8.yfb"]
+    fp_files = ["detect.mlir", "detect.onnx", "detect.pt2", "forward.mlir", "forward.pt2",
+                "model.bin", "model.caffemodel", "model.onnx", "model.param", "model.prototxt",
+                "model.pt", "model.yfb", "model_int8.yfb"]
     out, missing, printed = run("missing")
     assert printed[:2] == [f"no calibration images (.jpg/.png/.bmp) in {missing}",
                            "--qat-steps needs --calib-data (skipping QAT)"]
     assert sorted(os.listdir(out)) == fp_files
-    assert "forward.mlir and detect.mlir are JAX programs" in printed[-1]
+    assert printed[-1] == f"wrote {out / 'detect.mlir'}"
     out, _, printed = run("calib")
     assert sorted(os.listdir(out)) == sorted(fp_files + [
         "model.table", "model_int8.onnx", "forward_int8.pt2"])
-    assert "forward.mlir and detect.mlir are JAX programs" in printed[-1]
+    assert printed[-3:] == [f"wrote {out / name}" for name in (
+        "detect.pt2", "detect.mlir", "forward_int8.pt2")]
     with pytest.raises(SystemExit, match="single-head"):
         main(["export", "--weights", str(exports["lite"]["root"] / "port/model.onnx"), "--out",
               str(tmp_path / "o")])

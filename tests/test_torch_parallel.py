@@ -17,6 +17,7 @@ import importlib
 import json
 import os
 import time
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -41,7 +42,6 @@ MODULES = sorted(d for d in os.listdir(JAX_PACKAGE)
 # of ROADMAP.md section 3
 NOT_PORTED = {
     "utils": {"enable_compile_cache"},  # XLA's persistent compilation cache
-    "export": {"save_exported_mlir"},  # StableHLO text, which only JAX writes
 }
 # names the port keeps under another name
 RENAMED = {"export": {"export_jax_onnx": "export_torch_onnx"}}
@@ -208,6 +208,30 @@ def test_trace_writes_chrome_json_with_step_spans(tmp_path):
     assert len(files) == 1
     names = {e.get("name") for e in json.load(open(files[0]))["traceEvents"]}
     assert {"train_step/forward", "train_step/loss", "train_step/optimizer"} <= names
+
+
+def test_trace_holds_every_op_of_the_block(tmp_path):
+    """`trace` keeps every CPU operator event of the block and none from
+    around it: 7 adds and 3 multiplies under two `train_step/*` spans appear
+    in the written file exactly so many times, with both spans; a subtract
+    just before the block and a divide just after it do not."""
+    x = torch.ones(8)
+    x = torch.sub(x, 1)
+    with trace(str(tmp_path / "trace")):
+        with torch.profiler.record_function("train_step/forward"):
+            for _ in range(7):
+                x = torch.add(x, 1)
+        with torch.profiler.record_function("train_step/loss"):
+            for _ in range(3):
+                x = torch.mul(x, 2)
+    torch.div(x, 2)
+    files = glob.glob(str(tmp_path / "trace" / "*.pt.trace.json"))
+    assert len(files) == 1
+    events = json.load(open(files[0]))["traceEvents"]
+    ops = Counter(e["name"] for e in events if e.get("cat") == "cpu_op")
+    assert (ops["aten::add"], ops["aten::mul"], ops["aten::sub"], ops["aten::div"]) == (7, 3, 0, 0)
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"train_step/forward", "train_step/loss"} <= spans
 
 
 def test_dryrun_two_ranks_on_cpu(dryrun_two_ranks):  # noqa: F811

@@ -554,8 +554,9 @@ def test_cli_export_int8_files(tmp_path, port_exports):  # noqa: F811
     """``export --calib-data D --qat-steps 2 --device cpu`` (the tiny lite
     config, two images from a seed; the command run by
     ``tests/_background.py`` with one torch thread, and the references
-    here with one): JAX's file list with its programs as .pt2 and without
-    its StableHLO text, with the line naming it; ``model_int8.yfb`` carries
+    here with one): JAX's file list with its programs as .pt2 and their
+    StableHLO text (none for the int8 program, as in JAX), the int8
+    program written last; ``model_int8.yfb`` carries
     the command's own calibration of D and the QAT-refined weights,
     ``model_int8.onnx`` is the QDQ writer's file of those, and
     ``model.table`` is made from the fp weights with the same scales, each
@@ -578,9 +579,9 @@ def test_cli_export_int8_files(tmp_path, port_exports):  # noqa: F811
     assert sorted(os.listdir(out)) == sorted(
         ["model.yfb", "model_int8.yfb", "model.onnx", "detect.onnx", "model.param", "model.bin",
          "model.prototxt", "model.caffemodel", "model_int8.onnx", "model.table", "model.pt",
-         "forward.pt2", "detect.pt2", "forward_int8.pt2"])
+         "forward.pt2", "detect.pt2", "forward_int8.pt2", "forward.mlir", "detect.mlir"])
     assert printed[0].startswith("QAT distillation: loss ") and "(best of 2 steps)" in printed[0]
-    assert "forward.mlir and detect.mlir are JAX programs" in printed[-1]
+    assert printed[-1] == f"wrote {out / 'forward_int8.pt2'}"
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:

@@ -16,9 +16,10 @@ TorchScript trace runs on the CPU.  Where the JAX command writes its
 serialised programs (``forward``/``detect.stablehlo``, and
 ``forward_int8.stablehlo`` with calibration images), this one writes
 ``forward.pt2`` and ``detect.pt2`` (and ``forward_int8.pt2``), exported on
-``--device``, where they will run (``yolofastest_torch.export.pt2``).  The
-StableHLO text ``forward.mlir`` and ``detect.mlir`` (for ``cpp/build/yf_shlo``)
-is JAX's alone and is not written.
+``--device``, where they will run (``yolofastest_torch.export.pt2``), and
+beside the first two their StableHLO text, ``forward.mlir`` and
+``detect.mlir``, which ``cpp/runner/shlo_runner.cpp`` (``yf_shlo``) runs with
+no Python in the process (``yolofastest_torch.export.mlir``).
 ``convert`` writes a zoo-layout ``.npz`` from a ``.pth`` (or ``.npz``, or a
 port checkpoint directory), an ncnn pair or an ``.onnx``.
 """
@@ -38,8 +39,8 @@ _IDENTITY_BN_NOTE = ("note: batch norms are identity-lifted from the folded arti
 
 def add_export_parsers(sub) -> None:
     x = sub.add_parser("export", help="export ONNX + ncnn + Caffe + TorchScript + native .yfb "
-                                           "+ the .pt2 programs (+ the int8 files with "
-                                           "--calib-data)")
+                                           "+ the .pt2 programs and their StableHLO text "
+                                           "(+ the int8 files with --calib-data)")
     add_config_args(x)
     x.add_argument("--weights", required=True,
                    help=".npz zoo file, reference .pth, .onnx or a port checkpoint directory")
@@ -88,7 +89,7 @@ def cmd_export(args) -> int:
                                           export_ncnn, export_ncnn_table, export_onnx,
                                           export_onnx_detect, export_onnx_qdq,
                                           export_torchscript, save_exported,
-                                          save_native_weights)
+                                          save_exported_mlir, save_native_weights)
     from yolofastest_torch.models import fold_batchnorm
     from yolofastest_torch.quant import calibrate, qat_finetune, quantize_weights
 
@@ -170,10 +171,13 @@ def cmd_export(args) -> int:
             variables, cfg, cal, batch=args.batch, arch=args.arch, folded=int8_src,
             act_scales=act_scales, device=args.device)))
     for name, export in programs:
-        save_exported(export(), out(name))
+        program = export()
+        save_exported(program, out(name))
         print("wrote", out(name))
-    print("not written: forward.mlir and detect.mlir are JAX programs (StableHLO text for "
-          "cpp/build/yf_shlo; python -m yolofastest_tpu export writes them)")
+        if name != "forward_int8.pt2":  # as in JAX, the int8 program has no text twin
+            # the textual twin for the native consumer (yf_shlo)
+            save_exported_mlir(program, out(name.replace(".pt2", ".mlir")))
+            print("wrote", out(name.replace(".pt2", ".mlir")))
     return 0
 
 

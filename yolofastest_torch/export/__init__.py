@@ -6,13 +6,14 @@ whose kernels are registered operators) and the generic ONNX exporter of any
 traceable function.
 
 The port of ``yolofastest_tpu/export``, with the int8 QDQ ONNX and the
-ncnn int8 calibration table.  Its ``stablehlo.py`` is ``pt2.py`` here (less
-``save_exported_mlir``, the StableHLO text that only JAX writes), and its
-``export_jax_onnx`` is :func:`export_torch_onnx`.
+ncnn int8 calibration table.  Its ``stablehlo.py`` is ``pt2.py`` here, with
+``save_exported_mlir`` (the StableHLO text that ``cpp/runner/shlo_runner.cpp``
+runs) in ``mlir.py``, and its ``export_jax_onnx`` is :func:`export_torch_onnx`.
 """
 
 from yolofastest_torch.export.caffe import export_caffe
 from yolofastest_torch.export.generic_onnx import export_torch_onnx
+from yolofastest_torch.export.mlir import save_exported_mlir
 from yolofastest_torch.export.native import (load_native_weights, read_native_meta,
                                              save_native_weights)
 from yolofastest_torch.export.ncnn import export_ncnn, export_ncnn_table, import_ncnn
@@ -42,5 +43,6 @@ __all__ = [
     "load_native_weights",
     "read_native_meta",
     "save_exported",
+    "save_exported_mlir",
     "save_native_weights",
 ]

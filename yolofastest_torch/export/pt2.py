@@ -27,8 +27,8 @@ tensors made inside the traced function (decode's grids, the NMS outputs)
 keep the device they were traced on, so a program is exported on the device
 it will run on (``device=None``: the card).  ``torch.export`` records no
 cuDNN flag, so :class:`Program` runs fp32 convolutions with TF32 off, as the
-``Detector`` does.  The StableHLO text of ``save_exported_mlir`` (for the C++
-``yf_shlo``) has no counterpart.
+``Detector`` does.  ``export/mlir.py`` writes a program's StableHLO text
+(``save_exported_mlir``) for the C++ ``yf_shlo``.
 """
 
 from __future__ import annotations

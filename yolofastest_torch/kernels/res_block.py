@@ -60,16 +60,18 @@ def _chain_plain_nchw(x, w1, b1, w2, b2, w3, b3):
     dt = x.dtype
     f32 = torch.float32
     inner = w1.shape[2]
+    # every block's conv weights (OIHW) and biases (C, 1, 1) at once: a trace of
+    # the chain (export/mlir.py, export/generic_onnx.py) then holds a third of
+    # the nodes
+    w1, w3 = (w.to(dt).to(f32).transpose(1, 2)[..., None, None] for w in (w1, w3))
+    w2 = w2.to(dt).to(f32).permute(0, 3, 1, 2)[:, :, None]
+    b1, b2, b3 = (b.to(f32)[..., None, None] for b in (b1, b2, b3))
     with exact_fp32():
         for k in range(w1.shape[0]):
             xf = x.to(f32)
-            h1 = F.conv2d(xf, w1[k].to(dt).to(f32).t()[:, :, None, None])
-            h1 = torch.relu(h1 + b1[k].to(f32)[:, None, None]).to(dt)
-            h2 = F.conv2d(h1.to(f32), w2[k].to(dt).to(f32).permute(2, 0, 1)[:, None],
-                          padding=1, groups=inner)
-            h2 = torch.relu(h2 + b2[k].to(f32)[:, None, None]).to(dt)
-            h3 = F.conv2d(h2.to(f32), w3[k].to(dt).to(f32).t()[:, :, None, None])
-            x = (h3 + b3[k].to(f32)[:, None, None] + xf).to(dt)
+            h1 = torch.relu(F.conv2d(xf, w1[k]) + b1[k]).to(dt)
+            h2 = torch.relu(F.conv2d(h1.to(f32), w2[k], padding=1, groups=inner) + b2[k]).to(dt)
+            x = (F.conv2d(h2.to(f32), w3[k]) + b3[k] + xf).to(dt)
     return x
 
 

@@ -23,6 +23,13 @@ Neither cmake nor ninja is needed.  If neither library can be had,
 :class:`NativeEngine` raises ``FileNotFoundError`` naming both paths.
 ``YF_INT8=0`` in the environment keeps every layer in fp32 (the library
 reads it when an engine is made).
+
+The consumer of the StableHLO text programs (``forward.mlir``,
+``detect.mlir``), ``cpp/runner/shlo_runner.cpp`` (``yf_shlo``), is found the
+same way by :func:`find_shlo_runner`: ``cpp/build/yf_shlo`` where
+``cpp/build.sh`` built it, else ``build/native/yf_shlo-<hash>``, built at
+first use (one compile, ~7 s on an 8-core CPU); :func:`run_shlo` runs a
+program on one input array and reads its results back.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -106,25 +114,29 @@ def build_library(dst: str) -> Dict[str, Any]:
         if failed:
             raise RuntimeError("native library build failed: " + "\n".join(failed))
         so = os.path.join(tmp, "libyf.so")
-        objs = [j[1] for j in jobs]
-        link = subprocess.run([cxx, "-shared", "-fopenmp", "-o", so, *objs],
-                              capture_output=True, text=True)
-        openmp = "the compiler's (-fopenmp)"
-        if link.returncode:
-            # a compiler without its OpenMP link files (no libgomp.spec):
-            # link the GNU OpenMP runtime that is installed, by its path
-            gomp = _libgomp(cxx)
-            if gomp is None:
-                raise RuntimeError(f"native library link failed and no libgomp found:\n"
-                                   f"{link.stdout}{link.stderr}")
-            link = subprocess.run([cxx, "-shared", "-o", so, *objs, gomp,
-                                   f"-Wl,-rpath,{os.path.dirname(gomp)}"],
-                                  capture_output=True, text=True)
-            if link.returncode:
-                raise RuntimeError(f"native library link failed:\n{link.stdout}{link.stderr}")
-            openmp = gomp
+        openmp = _link(cxx, ["-shared"], [j[1] for j in jobs], so, "native library")
         os.replace(so, dst)  # whole file or none, if two processes build at once
     return {"seconds": time.perf_counter() - t0, "openmp": openmp}
+
+
+def _link(cxx: str, flags: List[str], objs: List[str], out: str, what: str) -> str:
+    """Link ``objs`` into ``out`` with OpenMP; returns the runtime linked.
+    A compiler without its OpenMP link files (no ``libgomp.spec``) links
+    the GNU OpenMP runtime that is installed, by its path."""
+    link = subprocess.run([cxx, *flags, "-fopenmp", "-o", out, *objs],
+                          capture_output=True, text=True)
+    if not link.returncode:
+        return "the compiler's (-fopenmp)"
+    gomp = _libgomp(cxx)
+    if gomp is None:
+        raise RuntimeError(f"{what} link failed and no libgomp found:\n"
+                           f"{link.stdout}{link.stderr}")
+    link = subprocess.run([cxx, *flags, "-o", out, *objs, gomp,
+                           f"-Wl,-rpath,{os.path.dirname(gomp)}"],
+                          capture_output=True, text=True)
+    if link.returncode:
+        raise RuntimeError(f"{what} link failed:\n{link.stdout}{link.stderr}")
+    return gomp
 
 
 def _libgomp(cxx: str) -> Optional[str]:
@@ -157,6 +169,82 @@ def find_library() -> Tuple[str, Optional[Dict[str, Any]]]:
         raise FileNotFoundError(
             f"native library not found at {default_library_path()} (cpp/build.sh) and "
             f"not built at {dst}: {e}") from e
+
+
+# ------------------------------------------------------ the StableHLO consumer
+SHLO_SOURCE = os.path.join(CPP, "runner", "shlo_runner.cpp")
+SHLO_FLAGS = ("-std=c++17", "-O2", "-fopenmp")
+
+
+def shlo_runner_path() -> str:
+    """``build/native/yf_shlo-<hash>``: the hash covers the source, the
+    compiler and the flags."""
+    digest = hashlib.sha256(" ".join((str(_compiler()), *SHLO_FLAGS)).encode())
+    with open(SHLO_SOURCE, "rb") as f:
+        digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"yf_shlo-{digest.hexdigest()[:16]}")
+
+
+def build_shlo_runner(dst: str) -> Dict[str, Any]:
+    """Compile ``cpp/runner/shlo_runner.cpp`` (``yf_shlo``) into the program
+    ``dst`` with the host C++ compiler (no cmake); returns the build's wall
+    ``seconds`` and the ``openmp`` runtime it linked.  Raises
+    ``RuntimeError`` with the compiler's output on a failure
+    (``FileNotFoundError`` when there is no compiler)."""
+    cxx = _compiler()
+    if cxx is None:
+        raise FileNotFoundError("no C++ compiler ($CXX, c++, g++)")
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(dst)) as tmp:
+        obj = os.path.join(tmp, "shlo_runner.o")
+        done = subprocess.run([cxx, *SHLO_FLAGS, "-c", SHLO_SOURCE, "-o", obj],
+                              capture_output=True, text=True)
+        if done.returncode:
+            raise RuntimeError(f"yf_shlo build failed (exit {done.returncode}):\n"
+                               f"{done.stdout}{done.stderr}")
+        exe = os.path.join(tmp, "yf_shlo")
+        openmp = _link(cxx, [], [obj], exe, "yf_shlo")
+        os.replace(exe, dst)  # whole file or none, if two processes build at once
+    return {"seconds": time.perf_counter() - t0, "openmp": openmp}
+
+
+def find_shlo_runner() -> Tuple[str, Optional[Dict[str, Any]]]:
+    """``(path, build)``: ``cpp/build/yf_shlo`` (what ``cpp/build.sh``
+    builds) or :func:`shlo_runner_path` where either exists (``build``
+    None), else :func:`shlo_runner_path` built now (``build`` as
+    :func:`build_shlo_runner` returns it)."""
+    built = shlo_runner_path()
+    for path in (os.path.join(CPP, "build", "yf_shlo"), built):
+        if os.path.exists(path):
+            return path, None
+    return built, build_shlo_runner(built)
+
+
+def run_shlo(mlir_path: str, arg: np.ndarray, reps: int = 1,
+             runner: Optional[str] = None) -> Tuple[List[np.ndarray], float]:
+    """Run ``yf_shlo`` on the program ``mlir_path`` with the one argument
+    ``arg`` (float32, or uint8 for a uint8 program); returns its results
+    (float32 arrays of the program's result shapes, as ``yf_shlo`` writes
+    every type) and its ``avg_time`` in ms over ``reps`` runs (the host's
+    clock).  Raises ``RuntimeError`` with ``yf_shlo``'s message when it
+    fails."""
+    runner = runner or find_shlo_runner()[0]
+    with tempfile.TemporaryDirectory(prefix="yf_shlo_") as tmp:
+        raw = os.path.join(tmp, "in.raw")
+        arr = np.ascontiguousarray(arg)
+        (arr if arr.dtype == np.uint8 else arr.astype("<f4")).tofile(raw)
+        done = subprocess.run([runner, mlir_path, raw, os.path.join(tmp, "o"), str(reps)],
+                              capture_output=True, text=True)
+        if done.returncode:
+            raise RuntimeError(f"yf_shlo failed on {mlir_path}: {done.stderr.strip()}")
+        outs = []
+        for path, dims in re.findall(r"^wrote (\S+) \(([0-9x]*) \w+ as f32\)$", done.stdout,
+                                     re.M):
+            shape = tuple(int(d) for d in dims.split("x")) if dims else ()
+            outs.append(np.fromfile(path, "<f4").reshape(shape))
+        avg = float(re.search(r"^avg_time:([0-9.]+)ms$", done.stdout, re.M).group(1))
+    return outs, avg
 
 
 class NativeEngine:

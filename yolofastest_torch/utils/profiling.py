@@ -23,22 +23,62 @@ from typing import Dict, Iterator
 import torch
 
 
+# Host seconds between the trace's window and the block, at either end: the
+# profiler keeps a kernel only if its start and end, on the card's clock
+# converted to the host's, fall inside the window it opened on the host's
+# clock, and that conversion was off by up to ~4 ms on an H100 host.
+MARGIN_S = 0.05
+# Tiny kernels the warm-up step runs: a long-running process lost the first
+# 29-45 kernels launched after the profiler started (H100), so several times
+# that many.
+_WARM_UP_KERNELS = 256
+
+
+def _synchronize() -> None:
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def _warm_up_cupti() -> None:
+    """Tiny kernels, run to their end while the profiler warms up."""
+    x = torch.zeros(1024, device="cuda")
+    for _ in range(_WARM_UP_KERNELS):
+        x.add_(1)
+    torch.cuda.synchronize()
+
+
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     """Profile the block into a Chrome trace file in ``log_dir`` (made if
-    missing); yields the running ``torch.profiler.profile``."""
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+    missing); yields the running ``torch.profiler.profile``.
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
+    The trace holds every kernel the block launches.  The card's earlier
+    work ends before the profiler starts; the profiler then starts in a
+    warm-up step (its events are dropped) in which, where there is a card,
+    :data:`_WARM_UP_KERNELS` tiny kernels run to their end, and the window opens
+    :data:`MARGIN_S` before the block and closes :data:`MARGIN_S` after the
+    block's kernels end.  Without the warm-up kernels the first kernels
+    launched after the profiler started were missing (their launches
+    recorded), in a long-running process on an H100 in nearly every trace;
+    without the margins the block's first kernels could fall outside the
+    window."""
+    from torch.profiler import ProfilerActivity, profile, schedule, tensorboard_trace_handler
+
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+    _synchronize()
+    with profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        if cuda:
+            _warm_up_cupti()
+        prof.step()  # warm-up -> recording: the window opens here
+        time.sleep(MARGIN_S)
         try:
             yield prof
         finally:
-            if torch.cuda.is_initialized():
-                torch.cuda.synchronize()  # the block's kernels end inside the trace
+            _synchronize()  # the block's kernels end inside the window
+            time.sleep(MARGIN_S)
 
 
 class SectionTimer:
