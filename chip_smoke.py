@@ -45,7 +45,13 @@ calibration on the card against the CPU with a cache written and read,
 launches, and both backends timed beside fp32), quant2 (the sensitivity
 sweep, timed, and against the CPU port's, QAT steps card against CPU in float64 and
 fp32 with the teacher's chain launches and the steps/s, and ``export
---calib-data --qat-steps --device cuda``'s int8 files), native (the C++
+--calib-data --qat-steps --device cuda``'s int8 files), recipes (the
+deployment matrix of ``tools/run_golden_suite.py`` at both sizes, every
+row's golden recall against ``docs/golden_suite_summary.json``'s, with ms
+per image and launches; the 512x640 int8 recipe against the committed
+artifact; the pruned hybrid keep-fp search against the committed set; the
+recall-selected QAT search with ``tools/make_int8_zoo.py``'s shipped flags,
+a shipped snapshot loaded back through the int8 backends), native (the C++
 engine of ``cpp/`` on the host CPU, found or built from the checkout's
 sources: fp32 at both sizes against the fp Detector on the card and timed
 beside its B=1 latency, with the host CPU's model; ``native-int8`` from the
@@ -1078,6 +1084,7 @@ def mlir_path(card, counted, mlir_dir, shlo) -> dict:
     import torch
 
     from yolofastest_torch.configs import get_config
+    from yolofastest_torch.eval.golden_suite import host_cpu
     from yolofastest_torch.export import (export_detect_pipeline, load_exported, save_exported,
                                           save_exported_mlir)
     from yolofastest_torch.inference import detections_to_lists
@@ -1593,25 +1600,197 @@ def quant2_path(card, counted) -> dict:
     return counts
 
 
-def host_cpu() -> str:
-    """The host CPU: its model name (``lscpu``, else /proc/cpuinfo; a virtual
-    machine may say "unknown"), vendor, family and model numbers, and count."""
-    info = {}
-    if os.path.exists("/proc/cpuinfo"):
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                key, _, value = line.partition(":")
-                info.setdefault(key.strip(), value.strip())
-    try:
-        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
-    except OSError:
-        out = ""
-    names = [ln.split(":", 1)[1].strip() for ln in out.splitlines()
-             if ln.strip().startswith("Model name")]
-    name = next((n for n in names + [info.get("model name", "")]
-                 if n and n.lower() != "unknown"), "unknown")
-    return (f"{name} ({info.get('vendor_id', '?')} family {info.get('cpu family', '?')} "
-            f"model {info.get('model', '?')}, {os.cpu_count()} CPUs)")
+# The recipes phase: tools/run_golden_suite.py's deployment matrix and the
+# int8 recipes, through yolofastest_torch.eval.golden_suite and
+# yolofastest_torch.quant.recipes.  The QAT search runs make_int8_zoo.py's
+# shipped 256x320 flags; the pruned search search_pruned_int8.py's default
+# scale sets (4 s on the card: mse12's one-layer set ends it).
+RECIPES_QAT = {"spec": "amax8", "steps": 800, "snap": 20, "conf_weight": 4.0}
+
+
+def recipes_path(card, counted) -> dict:
+    """The recipes phase on the card.  The deployment matrix
+    (``run_resolution`` at both sizes: every row's recall against
+    ``docs/golden_suite_summary.json``'s, ms per image, the kernel launches
+    of each size); the 512x640 recipe (``build_shipped``: folded weights
+    against the committed artifact bit for bit, its scales' distance from
+    the committed ones and from a CPU calibration, the three int8 recalls,
+    the two device recalls against the CPU's with the same scales); the
+    pruned hybrid search (the set found beside the committed ``keep_fp``);
+    the recall-selected QAT search (every candidate's recalls, the step
+    shipped or the best joint recall and its step, the teacher's chain
+    launches, steps/s; a shipped artifact loaded back through the int8,
+    int8-fused and native-int8 backends).  One JSON line; returns the
+    launch counts of each run."""
+    import tempfile
+
+    import torch
+
+    from yolofastest_torch.configs import get_config
+    from yolofastest_torch.eval.golden import (fetch, golden_inputs, int8_recalls,
+                                               native_int8_recall, recall_vs_golden, score_int8)
+    from yolofastest_torch.eval.golden_suite import host_cpu, methodology, run_resolution
+    from yolofastest_torch.inference import Detector
+    from yolofastest_torch.models import fold_batchnorm, load_variables, zoo_path
+    from yolofastest_torch.quant import load_int8_zoo
+    from yolofastest_torch.quant.recipes import (PRUNED_SCALE_SETS, build_shipped, make_scales,
+                                                 search_hybrid_keep_fp, search_recall_qat)
+
+    t0 = time.perf_counter()
+    vnni = host_int8()
+    counts = {}
+    with open(os.path.join(ROOT, "docs", "golden_suite_summary.json")) as f:
+        committed = json.load(f)
+
+    # -- the matrix: JAX's rows under JAX's names (jax- read as torch-)
+    matrix, want = {"methodology": methodology("cuda")}, {}
+    with tempfile.TemporaryDirectory(prefix="yf_golden_suite_") as td:
+        for res in ("256x320", "512x640"):
+            c0 = time.perf_counter()
+            matrix[res], counts[f"matrix_{res}"] = counted(
+                lambda: run_resolution(res, td, "cuda", log=lambda _: None))
+            matrix[res + "_seconds"] = time.perf_counter() - c0
+            want[res] = {k.replace("jax-", "torch-"): v["recall"]
+                         for k, v in committed[res].items()}
+        with open(os.path.join(td, "summary.json"), "w") as f:
+            json.dump(matrix, f, indent=2)
+        summary_written = os.path.getsize(os.path.join(td, "summary.json")) > 0
+
+    # -- the 512x640 recipe: plain PTQ, amax over the first 16 golden frames
+    cfg512 = get_config("512x640")
+    imgs512, golden512 = golden_inputs("512x640")
+    art_folded, art_scales, _ = load_int8_zoo("512x640")
+    rec512 = {}
+    with tempfile.TemporaryDirectory(prefix="yf_recipe512_") as td:
+        out = os.path.join(td, "yolofastest_int8_512x640.npz")
+        c0 = time.perf_counter()
+        _, counts["recipe_512x640"] = counted(
+            lambda: build_shipped("512x640", out, "cuda", log=lambda _: None, record=rec512))
+        built_s = time.perf_counter() - c0
+        built_folded, built_scales, built_keep = load_int8_zoo(out)
+    cpu_scales = make_scales(fold_batchnorm(load_variables(zoo_path("512x640"))), imgs512,
+                             "amax16", "cpu")
+    recalls512, counts["recipe_512x640_scores"] = counted(
+        lambda: score_int8(built_folded, built_scales, (), cfg512, "cuda", imgs512, golden512))
+    cpu_recalls512 = int8_recalls(built_folded, built_scales, (), cfg512, imgs512, golden512,
+                                  "cpu")
+    recipe512 = {
+        "seconds": built_s, "folded_equal_committed": sorted(built_folded) == sorted(art_folded)
+        and all(np.array_equal(built_folded[k][leaf], art_folded[k][leaf])
+                for k in art_folded for leaf in art_folded[k]),
+        "same_scale_keys": list(built_scales) == list(art_scales) == list(cpu_scales),
+        "max_rel_scale_distance_committed": max(abs(built_scales[k] - s) / s
+                                                for k, s in art_scales.items()),
+        "max_rel_scale_distance_cpu": max(abs(built_scales[k] - s) / s
+                                          for k, s in cpu_scales.items()),
+        "recalls_per_layer_fused_native": recalls512, "golden": len(golden512),
+        "cpu_recalls_per_layer_fused": cpu_recalls512, "keep_fp": list(built_keep),
+        "committed_artifact_recalls": {k: matrix["512x640"][k]["recall"]
+                                       for k in ("int8", "int8-fused", "native-cpp-int8")}}
+
+    # -- the pruned hybrid keep-fp search at 256x320
+    cfg = get_config("256x320")
+    imgs, golden = golden_inputs("256x320")
+    pruned = fold_batchnorm(load_variables(os.path.join(WEIGHTS,
+                                                        "yolofastest_pruned040_256x320.npz")))
+    pruned_art = load_int8_zoo(os.path.join(WEIGHTS, "yolofastest_int8_pruned040_256x320.npz"))
+    sets = PRUNED_SCALE_SETS.split(",")
+    pruned_log = []
+    c0 = time.perf_counter()
+    best, counts["pruned_search"] = counted(lambda: search_hybrid_keep_fp(
+        pruned, cfg, imgs, golden, sets, device="cuda", log=pruned_log.append))
+    search = {"scale_sets": sets, "seconds": time.perf_counter() - c0, "committed_keep_fp": list(pruned_art[2]),
+              "committed_scales": "mse12", "log_lines": len(pruned_log),
+              "log_first": pruned_log[:12], "log_last": pruned_log[-4:]}
+    if best is not None:
+        n_keep, spec, keep, recalls, _ = best
+        search.update(found_keep_fp=list(keep), found_scales=spec, recalls=list(recalls),
+                      equal_committed=spec == "mse12" and keep == pruned_art[2])
+    else:
+        search.update(found_keep_fp=None, equal_committed=False)
+
+    # -- the recall-selected QAT search at 256x320 (make_int8_zoo.py's flags)
+    folded = fold_batchnorm(load_variables(zoo_path("256x320")))
+    scales = make_scales(folded, imgs, RECIPES_QAT["spec"], "cuda")
+    qat_rec, qat_log = {}, []
+    with tempfile.TemporaryDirectory(prefix="yf_recipe256_") as td:
+        out = os.path.join(td, "yolofastest_int8_256x320.npz")
+        c0 = time.perf_counter()
+        found, counts["qat_search"] = counted(lambda: search_recall_qat(
+            folded, cfg, scales, imgs=imgs, golden=golden, out=out, device="cuda",
+            log=qat_log.append, record=qat_rec, **RECIPES_QAT))
+        qat_s = time.perf_counter() - c0
+        joint = [(label, min(r), list(r)) for label, r in qat_rec["scores"]]
+        best_joint = max(joint, key=lambda t: t[1])  # the first of the highest
+        qat = {"flags": RECIPES_QAT, "seconds": qat_s, "qat_seconds": qat_rec["qat_seconds"],
+               "steps_per_s": RECIPES_QAT["steps"] / qat_rec["qat_seconds"],
+               "loss_first_min": [qat_rec["history"][0], min(qat_rec["history"])],
+               "shipped": found[0] if found else None,
+               "best_joint": {"candidate": best_joint[0], "recall": best_joint[1],
+                              "recalls": best_joint[2]},
+               "candidates_scored": len(joint), "scores": joint, "golden": len(golden),
+               "committed": "step460 of 800 (JAX, TPU)"}
+        if found:
+            s_folded, s_scales, s_keep = load_int8_zoo(out)
+            back = {}
+            for backend in ("int8", "int8-fused"):
+                det = Detector(cfg, None, backend=backend, int8_artifact=out, device="cuda")
+                back[backend] = recall_vs_golden(fetch(det.run(torch.from_numpy(imgs).cuda())),
+                                                 golden)[0]
+            back["native-int8"] = native_int8_recall(s_folded, s_scales, s_keep, cfg, imgs,
+                                                     golden)[0]
+            qat["shipped_recalls_loaded_back"] = back
+    emit("recipes", card=card, host_cpu=host_cpu(), host_avx512_vnni=vnni,
+         matrix=matrix, matrix_committed_recall=want,
+         matrix_note="device rows: one batch of the golden frames, best of 3 calls after a warm "
+                     "one, host clock around the call and the fetch of its detections; native "
+                     "rows: best of 3 passes, host clock around each engine.detect, host CPU",
+         summary_json_written=summary_written, recipe_512x640=recipe512,
+         pruned_search=search, qat_search=qat, launches=counts,
+         seconds=time.perf_counter() - t0)
+
+    for res in ("256x320", "512x640"):
+        got = {k: v["recall"] for k, v in matrix[res].items()}
+        check(got == want[res], f"recipes matrix {res}: recalls {got}, committed {want[res]}")
+        c = counts[f"matrix_{res}"]
+        device_rows = sum("ms_per_img_batched" in v for v in matrix[res].values())
+        k2 = 6 * 4 * ("pruned040-bf16" in matrix[res])  # a warm call and 3 timed
+        check(c["res_chain_rows"] == k2 and c["res_chain_cf"] == 0
+              and c["nms"] == 4 * device_rows,
+              f"recipes matrix {res} launches {c}: want {k2} K2, {4 * device_rows} NMS")
+    check(recipe512["folded_equal_committed"] and recipe512["same_scale_keys"]
+          and recipe512["max_rel_scale_distance_cpu"] <= 1e-5
+          and list(recalls512[:2]) == list(cpu_recalls512),
+          f"recipes 512x640 recipe: {recipe512}")
+    check(counts["recipe_512x640"]["nms"] == 0 and counts["recipe_512x640_scores"]["nms"] == 2
+          and not counts["recipe_512x640_scores"]["res_chain_rows"],
+          f"recipes 512x640 launches {counts}")
+    check(best is None or (len(best[3]) == 3 and min(best[3]) == len(golden)),
+          f"recipes pruned search: {search}")
+    check(not counts["pruned_search"]["res_chain_rows"] and counts["pruned_search"]["nms"] > 0,
+          f"recipes pruned search launches {counts['pruned_search']}")
+    n_batches = -(-len(imgs) // 4)
+    c = counts["qat_search"]
+    check(c["res_chain_rows"] == 6 * n_batches and c["res_chain_cf"] == 0
+          and c["nms"] == 2 * len(joint),
+          f"recipes QAT search launches {c}: want {6 * n_batches} K2 (the teacher), "
+          f"{2 * len(joint)} NMS (two a scored candidate)")
+    check(all(np.isfinite(qat_rec["history"])), f"recipes QAT losses: {qat['loss_first_min']}")
+    if found:
+        check(all(v == len(golden) for v in qat["shipped_recalls_loaded_back"].values()),
+              f"recipes QAT shipped artifact loaded back: {qat['shipped_recalls_loaded_back']}")
+    return counts
+
+
+def host_int8() -> bool:
+    """Whether the host CPU has AVX-512 VNNI; without it the native library
+    is told to run its int8 layers on its scalar int8 path (``YF_INT8=1``:
+    the same values, slower) rather than in fp32."""
+    with open("/proc/cpuinfo") as f:
+        vnni = "avx512_vnni" in f.read()
+    if not vnni:
+        os.environ["YF_INT8"] = "1"
+    return vnni
 
 
 def native_path(card, counted) -> dict:
@@ -1641,6 +1820,7 @@ def native_path(card, counted) -> dict:
     from yolofastest_torch.cli.serve import build_server
     from yolofastest_torch.configs import get_config
     from yolofastest_torch.data import write_voc_xml
+    from yolofastest_torch.eval.golden_suite import host_cpu
     from yolofastest_torch.export import save_native_weights
     from yolofastest_torch.inference import Detector, detections_to_lists
     from yolofastest_torch.models import fold_batchnorm, load_variables
@@ -1651,10 +1831,7 @@ def native_path(card, counted) -> dict:
     t0 = time.perf_counter()
     cpu = host_cpu()
     lib_path, build = find_library()
-    with open("/proc/cpuinfo") as f:
-        vnni = "avx512_vnni" in f.read()
-    if not vnni:  # the library's scalar int8 path: the same values, slower
-        os.environ["YF_INT8"] = "1"
+    vnni = host_int8()
     counts = {}
 
     def per_image_ms(fn, imgs, reps=3):
@@ -3260,6 +3437,9 @@ def main() -> int:
     # --------------------------------------- quantisation tools (sweep, QAT)
     quant2_path(card, counted)
 
+    # ------------------- the deployment matrix and the int8 artifact recipes
+    recipes = recipes_path(card, counted)
+
     # ------------------------------------------- the C++ engine (host CPU)
     native_path(card, counted)
 
@@ -3296,6 +3476,7 @@ def main() -> int:
         spatial_at="one forward of the (2, 2) mesh's spatial rank 0 at 512x640; ms: the six "
                    "chains at B=10 on that rank's planes (own rows + K halo rows) beside the "
                    "whole planes, fp32")
+    summary[-1]["recipes_launches"] = {k: c["res_chain_rows"] for k, c in recipes.items()}
     nms64 = next(t for t in nms_timing if t["candidates"] == "golden_256x320" and t["B"] == 64)
     summary.append({
         "name": "nms_packed", "route": "cuda", "source": NMS_SOURCE,
@@ -3305,6 +3486,7 @@ def main() -> int:
         "mismatches": mismatched, "ms": nms64["device_ms"],
         "events_ms_host_pace": nms64["events_ms_host_pace"], "plain_ms": nms64["plain_ms"],
         "bound_ms": nms64["bound_ms"], "bound_by": nms64["bound_by"], "library_ms": None,
+        "recipes_launches": {k: c["nms"] for k, c in recipes.items()},
         "at": "golden 256x320 candidates tiled to B=64, K=128, max_det 64; ms from the profiler"})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

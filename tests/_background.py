@@ -36,6 +36,11 @@ the same.
   programs and generic ONNX files, read by ``tests/test_torch_programs.py``;
   the ``fastest`` command's ``forward.mlir`` and ``detect.mlir`` are read by
   ``tests/test_torch_mlir.py`` too;
+* :func:`recipe_outputs`: a process of ``tests/_torch_recipes.py`` ``run``
+  (the deployment matrix on two frames, the 512x640 int8 recipe and the
+  lite seed, ~10 s at ``nice 10``) and one of ``tests/_jax_recipes.py``
+  (``tools/make_lite_seed.py --out``, ~27 s of CPU at ``nice 19``), read
+  by ``tests/test_torch_recipes.py``;
 * :func:`mlir_programs`: a process of ``tests/_torch_mlir.py`` ``run``
   (``yf_shlo`` found or built, the seeded forwards, the NMS and sort
   programs written as StableHLO text and run through it, the refused
@@ -73,6 +78,10 @@ MLIR_TESTS = ("test_forward_mlir_matches_port_and_jax", "test_nms_mlir_matches_p
 PROGRAMS_TESTS = ("test_exported_graphs_record_the_kernels", "test_forward_pt2_matches_jax",
                   "test_detect_pt2_matches_jax", "test_int8_pt2_matches_jax",
                   "test_detect_pt2_in_a_fresh_process", "test_full_model_generic_export_64x96")
+RECIPES_TESTS = ("test_matrix_rows_on_two_frames", "test_matrix_row_names_match_committed",
+                 "test_build_shipped_512x640_reproduces_committed",
+                 "test_build_shipped_512x640_scales_match_jax_calibrate",
+                 "test_lite_seed_matches_jax_tool", "test_nothing_written_to_weights")
 NICE = 19
 # the export commands' processes: each command's readers wait for its group only
 COMMAND_GROUPS = {"commands": ("fastest", "qat"), "commands_missing": ("missing",),
@@ -241,6 +250,67 @@ def mlir_programs(request, tmp_path_factory):
     proc.join()
 
 
+@pytest.fixture(scope="session")
+def recipe_outputs(request, tmp_path_factory):
+    """:class:`Outputs` of ``tests/_torch_recipes.py`` ``run`` and of the
+    JAX lite seed tool (``tests/_jax_recipes.py``), or None where none of
+    their readers is selected."""
+    if not _selected(request, RECIPES_TESTS):
+        yield None
+        return
+    if "recipes" not in _STARTED:
+        from tests._torch_recipes import run
+
+        root = tmp_path_factory.mktemp("recipes")
+        proc = multiprocessing.get_context("spawn").Process(target=_niced_by,
+                                                            args=(10, run, str(root)))
+        proc.start()
+        from tests._jax_recipes import XLA_FLAGS
+
+        jax_tool = subprocess.Popen(
+            [sys.executable, "-m", "tests._jax_recipes", str(root)], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "JAX_PLATFORMS": "cpu", "XLA_FLAGS": XLA_FLAGS},
+            preexec_fn=lambda: os.nice(NICE))
+        _STARTED["recipes"] = Outputs(proc, jax_tool, root)
+    outputs = _STARTED["recipes"]
+    yield outputs
+    if outputs.proc.is_alive():
+        outputs.proc.kill()
+    outputs.proc.join()
+    if outputs.jax_tool.poll() is None:
+        outputs.jax_tool.kill()
+    outputs.jax_tool.communicate()
+
+
+class Outputs:
+    """The port's process, which writes its outputs to ``root`` and
+    ``done.json`` last (:meth:`wait` returns ``root`` once it has ended
+    well), and the JAX tool's (:meth:`wait_jax`)."""
+
+    def __init__(self, proc, jax_tool, root):
+        self.proc, self.jax_tool, self.root = proc, jax_tool, root
+
+    def wait(self, timeout: float = 600):
+        self.proc.join(timeout=timeout)
+        done = self.root / "done.json"
+        assert done.exists(), f"exit code {self.proc.exitcode}, no done.json"
+        result = json.loads(done.read_text())
+        assert result["ok"], result.get("error")
+        return self.root
+
+    def wait_jax(self, timeout: float = 600):
+        """``root`` once the JAX tool has exited 0."""
+        out, _ = self.jax_tool.communicate(timeout=timeout)
+        assert self.jax_tool.returncode == 0, out
+        return self.root
+
+
+def _niced_by(level, target, *args):
+    os.nice(level)
+    target(*args)
+
+
 def _export_argvs(root):
     import dataclasses
 
@@ -282,16 +352,11 @@ def _train_inputs(tmp_path_factory, name):
     return td, (_cfg().to_json(), path)
 
 
-def _niced(target, *args):
-    os.nice(NICE)
-    target(*args)
-
-
 def _spawn(target, world, args, outs):
     """Start ``world`` ranks of ``target(rank, world, port, *args, out)``."""
     ctx = multiprocessing.get_context("spawn")
     port = free_port()
-    procs = [ctx.Process(target=_niced, args=(target, r, world, port, *args, outs[r]))
+    procs = [ctx.Process(target=_niced_by, args=(NICE, target, r, world, port, *args, outs[r]))
              for r in range(world)]
     for p in procs:
         p.start()

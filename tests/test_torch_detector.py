@@ -139,23 +139,31 @@ IMPORTS_CODE = (
     "import yolofastest_torch.parallel.halo\n"
     "import yolofastest_torch.export.pt2, yolofastest_torch.export.generic_onnx\n"
     "import yolofastest_torch.utils\n"
+    "import yolofastest_torch.eval.golden, yolofastest_torch.eval.golden_suite\n"
+    "import yolofastest_torch.quant.recipes\n"
+    "sys.path.insert(0, 'tools')\n"
+    "import torch_golden_suite, torch_make_int8_zoo, torch_make_lite_seed\n"
+    "import torch_search_int8_recipe2, torch_search_pruned_int8\n"
     "bad = [m for m in sys.modules if 'flax' in m or 'yolofastest_tpu' in m]\n"
+    "bad += [m for m in ('jax', 'jaxlib') if m in sys.modules]\n"
     "print(bad)\n"
     "sys.exit(1 if bad else 0)\n")
 
 
 def test_package_imports_no_jax_package(fresh_processes):
-    """A fresh process that imports the port loads no yolofastest_tpu and no
-    flax module.  (``import torch`` may pull jax in through opt_einsum here,
-    so the check names the JAX package and flax, as
-    tests/test_export_torch.py:83-89 does.)"""
+    """A fresh process that imports the port, and the deployment tools of
+    ``tools/torch_*.py``, loads no yolofastest_tpu, flax, jax or jaxlib
+    module (as tests/test_export_torch.py:83-89 checks the exporter)."""
     out, err = fresh_processes["imports"].communicate(timeout=300)
     assert fresh_processes["imports"].returncode == 0, out + err
 
 
 def test_sources_import_no_jax():
     banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|yolofastest_tpu)\b", re.M)
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(ROOT, "tools", f"torch_{t}.py") for t in (
+            "golden_suite", "make_int8_zoo", "make_lite_seed", "search_int8_recipe2",
+            "search_pruned_int8")]
     for d, _, files in os.walk(os.path.join(ROOT, "yolofastest_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     assert len(paths) > 15
@@ -165,7 +173,8 @@ def test_sources_import_no_jax():
                    "models/summary.py", "cli/export.py", "cli/quantize.py", "native/__init__.py",
                    "native/engine.py", "data/anchors.py", "data/txt2xml.py",
                    "data/lmdb_reader.py", "cli/datatools.py", "cli/info.py",
-                   "parallel/halo.py", "export/pt2.py", "export/generic_onnx.py"):
+                   "parallel/halo.py", "export/pt2.py", "export/generic_onnx.py",
+                   "eval/golden.py", "eval/golden_suite.py", "quant/recipes.py"):
         assert os.path.join(ROOT, "yolofastest_torch", module) in paths, module
     for p in paths:
         with open(p) as f:
