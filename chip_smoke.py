@@ -57,7 +57,13 @@ sources: fp32 at both sizes against the fp Detector on the card and timed
 beside its B=1 latency, with the host CPU's model; ``native-int8`` from the
 three shipped artifacts; ``native-int8`` calibrated on the card; ``detect``,
 ``serve``, ``video`` and ``eval`` with ``--backend native``, none of which
-launches a CUDA kernel), parallel (data parallelism over a process group:
+launches a CUDA kernel), finetune (the pseudo-GT fine-tune set of
+``tools/torch_make_finetune_set.py``; two runs of the train step, fp32 and
+bf16, and of QAT from one state, bit for bit; the prune040 recipe at full
+depth through the ``prune`` and ``train`` commands with its golden recall;
+the full-scale recipe from random init, cut to 200 steps; the lite-512 zoo
+on the 512x640 val set through the fp Detector and the native engine),
+parallel (data parallelism over a process group:
 two spawned gloo ranks on the one card, each with half of a global batch of
 16, float64 steps equal to one process to 1e-9, fp32 distillation steps
 with the teacher's chain launches on each rank, save and resume bit for
@@ -365,14 +371,13 @@ def train_path(card, counted) -> dict:
         check(counts["train"]["nms"] == 2 * 4 and counts["train"]["res_chain_rows"] == 0,
               f"fit launches {counts['train']}")
 
-        # a restored step equals the uninterrupted one (cuDNN deterministic)
+        # a restored step equals the uninterrupted one (the step is
+        # deterministic on its own)
         batch = next(iter(loader))
         fresh = Trainer(cfg, batch_per_epoch=len(loader), seed=1, device="cuda")
         fresh.restore_checkpoint(os.path.join(ckdir, "epoch_1"))
-        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
-                                        allow_tf32=False):
-            for t in (trainer, fresh):
-                t.step(*batch)
+        for t in (trainer, fresh):
+            t.step(*batch)
         pairs = [(getattr(trainer.state, f), getattr(fresh.state, f))
                  for f in ("params", "batch_stats", "mu", "nu")]
         pairs += list(zip(trainer.state.ema, fresh.state.ema))
@@ -2634,6 +2639,263 @@ def spatial_path(card, counted, reference, n_sm) -> dict:
                                      if c["dtype"] == "float32")}
 
 
+# The finetune phase's sizes: the determinism runs, and the full-scale
+# recipe cut to the first steps of its first epoch (the recipe: 30 epochs of
+# 500 steps; its whole run is docs/train_demo_fullscale_torch/).
+FINETUNE_DET_STEPS = 20
+FULLSCALE_STEPS = 200
+
+
+class FirstBatches:
+    """A loader's first ``n`` batches, as an epoch of ``n`` steps."""
+
+    def __init__(self, loader, n: int):
+        self.loader, self.n = loader, n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __iter__(self):
+        for i, batch in enumerate(self.loader):
+            if i == self.n:
+                return
+            yield batch
+
+
+def finetune_path(card, counted) -> dict:
+    """The pseudo-GT fine-tune set (``tools/torch_make_finetune_set.py``)
+    and the round-4 training recipes on the card: two fed runs of 20 steps
+    from one state on the same augmented batches, fp32 and bf16, and two
+    20-step QAT runs with the 256x320 int8 recipe's flags, each pair bit
+    for bit; the prune040 recipe at full depth through the ``prune`` and
+    ``train`` commands (60 epochs x 20 steps with EMA; the phase validates
+    every epoch and caches the decoded images, which leaves the batches as
+    they are), its EMA model's golden fp32 recall through the folded graph
+    (6 chain launches a forward) and its pure int8 recall; the full-scale
+    recipe from random init on the ``--copies 400`` set, cut to the first
+    200 steps of its first epoch; the lite-512 zoo scored on the tool's
+    512x640 val set through the fp Detector and the native engine.  One
+    JSON line; returns the launch counts of each run."""
+    import contextlib
+    import dataclasses
+    import io
+    import re
+    import tempfile
+
+    import torch
+
+    import torch_make_finetune_set
+    from yolofastest_torch.cli import main as cli_main
+    from yolofastest_torch.configs import get_config
+    from yolofastest_torch.data import DetectionLoader, VOCIndex
+    from yolofastest_torch.eval import MAPEvaluator, make_backend_eval_fn
+    from yolofastest_torch.eval.golden import fp_recall, golden_inputs, int8_recalls
+    from yolofastest_torch.export import save_native_weights
+    from yolofastest_torch.inference import Detector
+    from yolofastest_torch.models import fold_batchnorm, load_variables
+    from yolofastest_torch.native import NativeEngine, find_library
+    from yolofastest_torch.quant import calibrate
+    from yolofastest_torch.quant.qat import qat_finetune
+    from yolofastest_torch.quant.recipes import make_scales
+    from yolofastest_torch.train import Trainer, checkpoint_variables
+    from yolofastest_torch.utils.logging import LineLog
+
+    t_phase = time.perf_counter()
+    seconds, counts = {}, {}
+    zoo_path = os.path.join(WEIGHTS, "yolofastest_256x320.npz")
+    zoo = load_variables(zoo_path)
+    preset = get_config("256x320")
+
+    def recipe_config(**train):
+        return dataclasses.replace(preset, train=dataclasses.replace(preset.train, **train))
+
+    def same(a, b) -> bool:
+        return a.shape == b.shape and bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+    def log_values(path, pattern):
+        with open(path) as f:
+            return [float(m.group(1)) for m in re.finditer(pattern, f.read())]
+
+    def quiet(argv):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return cli_main(argv)
+
+    with tempfile.TemporaryDirectory(prefix="yf_finetune_") as td:
+        # ------------------------------------------------- the sets
+        t0 = time.perf_counter()
+        sets = {name: torch_make_finetune_set.write_set(os.path.join(td, name), copies, res,
+                                                        log=lambda _: None)
+                for name, copies, res in (("ft040", 16, "256x320"), ("ft8000", 400, "256x320"),
+                                          ("ft512", 1, "512x640"))}
+        seconds["sets"] = time.perf_counter() - t0
+        check(sets == {"ft040": {"train": 320, "val": 20}, "ft8000": {"train": 8000, "val": 20},
+                       "ft512": {"train": 19, "val": 19}}, f"fine-tune sets {sets}")
+        frame = os.path.join(td, "ft8000", "train", "img", "Cloud_2m_4089_c00.jpg")
+        links = os.stat(frame).st_nlink
+
+        # ----------------------------------------------- determinism
+        # two runs from one state on the same batches (the loader's first
+        # 20 over the --copies 16 set, augmentation on), compared bit for
+        # bit: the weights, the statistics, both moments and the EMA
+        t0 = time.perf_counter()
+        det_cfg = recipe_config(batch_size=16, ema_decay=0.9995, warmup_min_iters=60,
+                                total_epochs=60)
+        index = VOCIndex(os.path.join(td, "ft040", "train"), preset.io.class_names)
+        batches = []
+        for b in DetectionLoader(index, det_cfg, seed=0):
+            batches.append(b)
+            if len(batches) == FINETUNE_DET_STEPS:
+                break
+        determinism = {}
+        for dt in (torch.float32, torch.bfloat16):
+            runs = []
+            for _ in range(2):
+                t = Trainer(det_cfg, batch_per_epoch=20, variables=zoo, compute_dtype=dt,
+                            device="cuda")
+                losses = torch.stack([t.step(*b)["total"] for b in batches])
+                s = t.state
+                runs.append([losses, s.params.detach(), s.batch_stats, s.mu, s.nu, *s.ema])
+            equal = [same(a, b) for a, b in zip(*runs)]
+            determinism[str(dt).split(".")[-1]] = {
+                "steps": len(batches), "bit_equal": all(equal),
+                "equal_by_part": dict(zip(("losses", "params", "batch_stats", "mu", "nu",
+                                           "ema_params", "ema_batch_stats"), equal)),
+                "last_loss": float(runs[0][0][-1])}
+        imgs, golden = golden_inputs("256x320")
+        folded = fold_batchnorm(zoo)
+        scales = make_scales(folded, imgs, "amax8", "cuda")
+        qat = []
+        for _ in range(2):
+            (best, hist, snaps), counts[f"qat_{len(qat)}"] = counted(lambda: qat_finetune(
+                folded, scales, [imgs[i:i + 4] for i in range(0, len(imgs), 4)],
+                steps=FINETUNE_DET_STEPS, lr=5e-5, conf_weight=4.0,
+                snapshot_every=FINETUNE_DET_STEPS, device="cuda"))
+            qat.append((hist, snaps[0]))
+        qat_equal = qat[0][0] == qat[1][0] and all(
+            np.array_equal(qat[0][1][n][k], qat[1][1][n][k]) for n in qat[0][1]
+            for k in qat[0][1][n])
+        determinism["qat"] = {"steps": FINETUNE_DET_STEPS, "batch": 4, "bit_equal": qat_equal,
+                              "losses": [qat[0][0][0], qat[0][0][-1]],
+                              "launches": counts["qat_0"]}
+        seconds["determinism"] = time.perf_counter() - t0
+
+        # --------------------------------------- the prune040 recipe
+        # tools/torch_run_prune040_zoo.sh's commands at full depth, the
+        # config validating every epoch (the recipe's preset from epoch 5)
+        # and the decoded images cached (the same batches; uncached, the
+        # loader's decoding set the pace: 6.7 steps/s on the H100's host)
+        t0 = time.perf_counter()
+        pruned = os.path.join(td, "pruned040.npz")
+        check(quiet(["prune", "--config", "256x320", "--weights", zoo_path, "--ratio", "0.4",
+                     "--out", pruned]) == 0, "prune failed")
+        every_epoch = os.path.join(td, "256x320_every_epoch.json")
+        with open(every_epoch, "w") as f:
+            f.write(recipe_config(val_after_epoch=-1).to_json())
+        ck, logs = os.path.join(td, "ck040"), os.path.join(td, "prune040_logs")
+        rc, counts["prune040_train"] = counted(lambda: quiet([
+            "train", "--config-json", every_epoch,
+            "--train-dir", os.path.join(td, "ft040", "train"),
+            "--val-dir", os.path.join(td, "ft040", "val"), "--pretrained", pruned,
+            "--epochs", "60", "--batch-size", "16", "--warmup-min-iters", "60", "--ema",
+            "--cache-images", "--checkpoint-dir", ck, "--log-dir", logs, "--max-to-keep", "3"]))
+        check(rc == 0, "prune040 train failed")
+        info = os.path.join(logs, "train_info.log")
+        maps = log_values(info, r"mean AP: ([0-9.]+)")
+        rates = log_values(info, r"detection rate: ([0-9.]+)")
+        kept = sorted(os.listdir(ck), key=lambda d: int(d.split("_")[1]))
+        variables = checkpoint_variables(os.path.join(ck, kept[-1]))  # EMA preferred
+        (fp_hit, n_golden), counts["prune040_golden"] = counted(
+            lambda: fp_recall(variables, preset, "cuda"))
+        pfolded = fold_batchnorm(variables)
+        int8_hit = int8_recalls(pfolded, calibrate(pfolded, [imgs], device="cuda"), (), preset,
+                                imgs, golden, "cuda")[0]
+        prune040 = {"epochs": 60, "steps": 1200, "mAP_lines": len(maps),
+                    "mAP_first_last": [maps[0], maps[-1]] if maps else None,
+                    "detection_rate_last": rates[-1] if rates else None,
+                    "checkpoints": kept, "golden_fp32_recall": [fp_hit, n_golden],
+                    "jax_golden_fp32_recall": [34, 34], "golden_int8_recall": [int8_hit, n_golden],
+                    "launches_train": counts["prune040_train"],
+                    "launches_golden": counts["prune040_golden"]}
+        seconds["prune040"] = time.perf_counter() - t0
+
+        # ---------------- the full-scale recipe, the start of its first epoch
+        t0 = time.perf_counter()
+        full_cfg = recipe_config(batch_size=16, total_epochs=30, val_after_epoch=-1,
+                                 max_to_keep=2)
+        log = LineLog()
+        index = VOCIndex(os.path.join(td, "ft8000", "train"), preset.io.class_names)
+        loader = DetectionLoader(index, full_cfg, seed=full_cfg.train.seed, cache=True)
+        val = DetectionLoader(VOCIndex(os.path.join(td, "ft8000", "val"), preset.io.class_names),
+                              full_cfg, augment=False, shuffle=False, drop_last=False)
+        trainer = Trainer(full_cfg, batch_per_epoch=len(loader), logger=log, device="cuda")
+        ck8000 = os.path.join(td, "ck8000")
+        history, counts["fullscale"] = counted(lambda: trainer.fit(
+            FirstBatches(loader, FULLSCALE_STEPS), total_epochs=1, checkpoint_dir=ck8000,
+            validator=MAPEvaluator(full_cfg, val, logger=log, device="cuda")))
+        losses = [float(ln.split("loss = ")[1].split(",")[0]) for ln in log.lines
+                  if "loss = " in ln]
+        fullscale = {"steps": FULLSCALE_STEPS, "recipe_steps_per_epoch": len(loader),
+                     "recipe_epochs": 30, "losses_first_last": losses[:1] + losses[-1:],
+                     "loss_logs": len(losses), "mAP": [h.get("mAP") for h in history],
+                     "checkpoints": sorted(os.listdir(ck8000)),
+                     "launches": counts["fullscale"]}
+        seconds["fullscale"] = time.perf_counter() - t0
+
+        # ------------------- the lite-512 zoo on the tool's 512x640 val set
+        t0 = time.perf_counter()
+        lite_cfg = get_config("lite-512x640")
+        lite = load_variables(os.path.join(WEIGHTS, "yolofastest_lite_512x640.npz"))
+        val512 = DetectionLoader(VOCIndex(os.path.join(td, "ft512", "val"),
+                                          lite_cfg.io.class_names),
+                                 lite_cfg, augment=False, shuffle=False, drop_last=False)
+        yfb = os.path.join(td, "lite512.yfb")
+        save_native_weights(fold_batchnorm(lite), yfb, io_config=lite_cfg.io)
+        engines = {"fp": Detector(lite_cfg, variables=lite, arch="lite", device="cuda"),
+                   "native": NativeEngine(yfb, lite_cfg, library_path=find_library()[0])}
+        lite512 = {}
+        for name, engine in engines.items():
+            ev = MAPEvaluator(lite_cfg, val512, logger=LineLog(),
+                              eval_fn=make_backend_eval_fn(engine, max_det=lite_cfg.io.max_det))
+            m, counts[f"lite512_{name}"] = counted(lambda: ev(None))
+            lite512[name] = {"mAP": m, "detection_rate": ev.last_metrics["detection_rate"],
+                             "launches": counts[f"lite512_{name}"]}
+        seconds["lite512"] = time.perf_counter() - t0
+    seconds["phase"] = time.perf_counter() - t_phase
+
+    emit("finetune", card=card, sets=sets, links_of_a_frame=links, determinism=determinism,
+         prune040=prune040, fullscale=fullscale, lite512=lite512, seconds=seconds,
+         tolerance="determinism: bit for bit; prune040 golden fp32 recall >= 32/34 (JAX 34/34); "
+                   "lite512 mAP and detection rate >= 0.95 on each backend")
+    for name, d in determinism.items():
+        check(d["bit_equal"], f"two {name} runs from one state differ: {d}")
+    n_val = -(-20 // 16)  # val batches of the recipe's loader
+    check(len(maps) == 60 and len(rates) == 60, f"prune040: {len(maps)} mAP lines, want 60")
+    check(kept == ["epoch_57", "epoch_58", "epoch_59"], f"prune040 checkpoints {kept}")
+    check(counts["prune040_train"]["nms"] == 60 * n_val
+          and counts["prune040_train"]["res_chain_rows"] == 0,
+          f"prune040 launches {counts['prune040_train']}: want one NMS a val batch")
+    check(fp_hit >= 32, f"prune040 golden fp32 recall {fp_hit}/{n_golden}, want >= 32")
+    check(counts["prune040_golden"]["res_chain_rows"] == 6
+          and counts["prune040_golden"]["nms"] == 1,
+          f"prune040 golden launches {counts['prune040_golden']}: want 6 chains, 1 NMS")
+    check(all(c["res_chain_rows"] == 30 for k, c in counts.items() if k.startswith("qat_")),
+          f"QAT teacher launches {counts}: want 6 chains a batch of 4")
+    check(len(losses) == FULLSCALE_STEPS // 10 and all(np.isfinite(losses))
+          and np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"full-scale epoch losses {losses[:5]} ... {losses[-5:]}")
+    check(len(history) == 1 and "mAP" in history[0] and fullscale["checkpoints"] == ["epoch_0"],
+          f"full-scale epoch: {history}, {fullscale['checkpoints']}")
+    check(counts["fullscale"]["nms"] == n_val, f"full-scale launches {counts['fullscale']}")
+    for name, r in lite512.items():
+        check(r["mAP"] >= 0.95 and r["detection_rate"] >= 0.95, f"lite512 {name}: {r}")
+    n512 = -(-19 // lite_cfg.train.batch_size)
+    check(counts["lite512_fp"]["res_chain_rows"] == 6 * n512
+          and counts["lite512_fp"]["nms"] == n512, f"lite512 fp launches {counts['lite512_fp']}")
+    check(not any(counts["lite512_native"].values()),
+          f"the native engine launched {counts['lite512_native']}")
+    return counts
+
+
 def profile_path(card, counted) -> dict:
     """The ``profile`` phase: ``utils.profiling.trace`` around one B=8
     ``run_raw`` of the fp Detector and one fp32 train step at B=8 (256x320
@@ -3443,6 +3705,9 @@ def main() -> int:
     # ------------------------------------------- the C++ engine (host CPU)
     native_path(card, counted)
 
+    # ------------------- the fine-tune set and the round-4 training recipes
+    finetune = finetune_path(card, counted)
+
     # ------------------------------ data parallelism over a process group
     _, train_reference = parallel_path(card, counted)
 
@@ -3477,6 +3742,7 @@ def main() -> int:
                    "chains at B=10 on that rank's planes (own rows + K halo rows) beside the "
                    "whole planes, fp32")
     summary[-1]["recipes_launches"] = {k: c["res_chain_rows"] for k, c in recipes.items()}
+    summary[-1]["finetune_launches"] = {k: c["res_chain_rows"] for k, c in finetune.items()}
     nms64 = next(t for t in nms_timing if t["candidates"] == "golden_256x320" and t["B"] == 64)
     summary.append({
         "name": "nms_packed", "route": "cuda", "source": NMS_SOURCE,
@@ -3487,6 +3753,7 @@ def main() -> int:
         "events_ms_host_pace": nms64["events_ms_host_pace"], "plain_ms": nms64["plain_ms"],
         "bound_ms": nms64["bound_ms"], "bound_by": nms64["bound_by"], "library_ms": None,
         "recipes_launches": {k: c["nms"] for k, c in recipes.items()},
+        "finetune_launches": {k: c["nms"] for k, c in finetune.items()},
         "at": "golden 256x320 candidates tiled to B=64, K=128, max_det 64; ms from the profiler"})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -41,6 +41,10 @@ the same.
   lite seed, ~10 s at ``nice 10``) and one of ``tests/_jax_recipes.py``
   (``tools/make_lite_seed.py --out``, ~27 s of CPU at ``nice 19``), read
   by ``tests/test_torch_recipes.py``;
+* :func:`finetune_sets`: a process of ``tests/_finetune_sets.py`` ``run``
+  (JAX's ``tools/make_finetune_set.py`` and the port's tool on the fixture's
+  frames at both sizes, ~1 s at ``nice 10``), read by
+  ``tests/test_torch_finetune.py``;
 * :func:`mlir_programs`: a process of ``tests/_torch_mlir.py`` ``run``
   (``yf_shlo`` found or built, the seeded forwards, the NMS and sort
   programs written as StableHLO text and run through it, the refused
@@ -82,6 +86,8 @@ RECIPES_TESTS = ("test_matrix_rows_on_two_frames", "test_matrix_row_names_match_
                  "test_build_shipped_512x640_reproduces_committed",
                  "test_build_shipped_512x640_scales_match_jax_calibrate",
                  "test_lite_seed_matches_jax_tool", "test_nothing_written_to_weights")
+FINETUNE_TESTS = ("test_set_tool_prints_jax_lines", "test_set_matches_jax_tool",
+                  "test_loader_sees_the_fixture_frames")
 NICE = 19
 # the export commands' processes: each command's readers wait for its group only
 COMMAND_GROUPS = {"commands": ("fastest", "qat"), "commands_missing": ("missing",),
@@ -283,10 +289,32 @@ def recipe_outputs(request, tmp_path_factory):
     outputs.jax_tool.communicate()
 
 
+@pytest.fixture(scope="session")
+def finetune_sets(request, tmp_path_factory):
+    """:class:`Outputs` of ``tests/_finetune_sets.py`` ``run`` (both fine-tune
+    set tools' sets), or None where none of their readers is selected."""
+    if not _selected(request, FINETUNE_TESTS):
+        yield None
+        return
+    if "finetune" not in _STARTED:
+        from tests._finetune_sets import run
+
+        root = tmp_path_factory.mktemp("finetune")
+        proc = multiprocessing.get_context("spawn").Process(target=_niced_by,
+                                                            args=(10, run, str(root)))
+        proc.start()
+        _STARTED["finetune"] = Outputs(proc, None, root)
+    outputs = _STARTED["finetune"]
+    yield outputs
+    if outputs.proc.is_alive():
+        outputs.proc.kill()
+    outputs.proc.join()
+
+
 class Outputs:
     """The port's process, which writes its outputs to ``root`` and
     ``done.json`` last (:meth:`wait` returns ``root`` once it has ended
-    well), and the JAX tool's (:meth:`wait_jax`)."""
+    well), and the JAX tool's (:meth:`wait_jax`), where there is one."""
 
     def __init__(self, proc, jax_tool, root):
         self.proc, self.jax_tool, self.root = proc, jax_tool, root

@@ -8,16 +8,16 @@ import dataclasses
 
 import pytest
 
-from tests._background import (dryrun_two_ranks, mlir_programs,  # noqa: F401 (fixtures)
-                               port_exports, recipe_outputs, spatial_processes,
-                               two_rank_processes)
+from tests._background import (dryrun_two_ranks, finetune_sets,  # noqa: F401 (fixtures)
+                               mlir_programs, port_exports, recipe_outputs,
+                               spatial_processes, two_rank_processes)
 from tests._jax_refs import jax_refs  # noqa: F401 (a fixture)
 from yolofastest_torch.configs import config as tcfg
 from yolofastest_tpu.configs import config as jcfg
 
 pytestmark = pytest.mark.usefixtures("jax_refs", "dryrun_two_ranks", "spatial_processes",
                                      "two_rank_processes", "port_exports", "mlir_programs",
-                                     "recipe_outputs")
+                                     "recipe_outputs", "finetune_sets")
 
 PRESETS = ["256x320", "512x640", "lite-256x320", "lite-512x640"]
 

@@ -144,6 +144,7 @@ IMPORTS_CODE = (
     "sys.path.insert(0, 'tools')\n"
     "import torch_golden_suite, torch_make_int8_zoo, torch_make_lite_seed\n"
     "import torch_search_int8_recipe2, torch_search_pruned_int8\n"
+    "import torch_make_finetune_set, torch_determinism_check\n"
     "bad = [m for m in sys.modules if 'flax' in m or 'yolofastest_tpu' in m]\n"
     "bad += [m for m in ('jax', 'jaxlib') if m in sys.modules]\n"
     "print(bad)\n"
@@ -151,8 +152,8 @@ IMPORTS_CODE = (
 
 
 def test_package_imports_no_jax_package(fresh_processes):
-    """A fresh process that imports the port, and the deployment tools of
-    ``tools/torch_*.py``, loads no yolofastest_tpu, flax, jax or jaxlib
+    """A fresh process that imports the port, and the deployment and training
+    tools of ``tools/torch_*.py``, loads no yolofastest_tpu, flax, jax or jaxlib
     module (as tests/test_export_torch.py:83-89 checks the exporter)."""
     out, err = fresh_processes["imports"].communicate(timeout=300)
     assert fresh_processes["imports"].returncode == 0, out + err
@@ -163,7 +164,7 @@ def test_sources_import_no_jax():
     paths = [os.path.join(ROOT, "chip_smoke.py")] + [
         os.path.join(ROOT, "tools", f"torch_{t}.py") for t in (
             "golden_suite", "make_int8_zoo", "make_lite_seed", "search_int8_recipe2",
-            "search_pruned_int8")]
+            "search_pruned_int8", "make_finetune_set", "determinism_check")]
     for d, _, files in os.walk(os.path.join(ROOT, "yolofastest_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     assert len(paths) > 15

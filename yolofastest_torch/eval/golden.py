@@ -13,6 +13,8 @@ and int8 recipes (:mod:`yolofastest_torch.quant.recipes`) share:
   detection of the same class with IoU > 0.5;
 * :func:`post`: decode and class-aware NMS at the config's ``io``
   thresholds (on the card, the NMS kernel);
+* :func:`fp_recall`: a checkpoint's fp32 recall through the folded graph
+  (the training recipes' golden check);
 * :func:`score_int8`: the per-layer, fused and native recalls of one int8
   deployment (folded weights, activation scales, the layers kept in fp).
 
@@ -93,6 +95,22 @@ def post(heads, io) -> Dict[str, torch.Tensor]:
 
 def fetch(det: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.cpu().numpy() for k, v in det.items()}
+
+
+def fp_recall(variables, res_or_cfg, device=None) -> Tuple[int, int]:
+    """``(matched, rows)``: the fp32 golden recall of a trainable-layout
+    ``variables`` tree through the folded graph on ``device`` (the card
+    unless the caller asks for the CPU), as the deployed :class:`Detector`
+    runs it: on the card its six chains are the chain kernel and its NMS
+    the NMS kernel."""
+    from yolofastest_torch.configs import get_config
+    from yolofastest_torch.inference import Detector
+
+    cfg = get_config(res_or_cfg) if isinstance(res_or_cfg, str) else res_or_cfg
+    imgs, golden = golden_inputs(f"{cfg.io.input_hw[0]}x{cfg.io.input_hw[1]}")
+    det = Detector(cfg, variables=variables, device=device)
+    with torch.inference_mode():
+        return recall_vs_golden(fetch(post(det.forward_heads(imgs), cfg.io)), golden)
 
 
 def native_rows(engine, imgs: np.ndarray) -> List[List[List[float]]]:

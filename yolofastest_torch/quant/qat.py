@@ -17,7 +17,10 @@ int8 grid it is deployed on.
   :func:`yolofastest_torch.train.trainer.adam_update`) under one of two
   losses: distillation against the fp folded teacher's heads (computed once
   per batch; on the card the teacher's six chains are the chain kernel), or
-  the YOLOv3 loss on labels.  It returns the lowest-loss iterate.
+  the YOLOv3 loss on labels.  It returns the lowest-loss iterate.  The
+  step's loss and gradient run under
+  :func:`~yolofastest_torch.utils.device.deterministic_fp32`, so a run
+  repeats bit for bit on the card.
 
 **The arithmetic follows JAX's jitted step** (measured on the CPU with
 ``tools/torch_qat_parity.py``):
@@ -55,7 +58,7 @@ from yolofastest_torch.models.convert import torch_params_from_folded
 from yolofastest_torch.models.graph import (Executor, FoldedExecutor, _nchw, _nhwc,
                                             walk_topology, walk_topology_lite)
 from yolofastest_torch.train.trainer import FlatLayout, adam_update
-from yolofastest_torch.utils.device import exact_fp32, resolve_device
+from yolofastest_torch.utils.device import deterministic_fp32, exact_fp32, resolve_device
 
 _WALKS = {"fastest": walk_topology, "lite": walk_topology_lite}
 Q_MAX = 127.0
@@ -280,7 +283,7 @@ class QatRun:
         gradient."""
         theta = theta.detach().requires_grad_(True)
         self.ex.p = _nest(self.layout.views(theta))
-        with exact_fp32():
+        with deterministic_fp32():
             loss = self.loss_fn(_as_head_tuple(self.walk(self.xs[j], self.ex)), self.refs[j])
             (g,) = torch.autograd.grad(loss, theta)
         return loss.detach().to(self.dtype), g

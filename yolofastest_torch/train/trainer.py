@@ -22,7 +22,10 @@ out so that it matches optax and not torch's defaults:
   autograd leaves), keep their weights bit for bit and their running
   statistics (put back after the forward, which still normalises them with
   batch statistics); their Adam moments stay zero and are saved, so a
-  checkpoint has one layout with and without freezing.
+  checkpoint has one layout with and without freezing;
+* the step runs under :func:`~yolofastest_torch.utils.device.deterministic_fp32`,
+  so two runs from one state on the same batches are bit-equal on the card,
+  as JAX's are on one device.
 
 The parameters, BatchNorm statistics and Adam moments live in flat fp32
 vectors (one entry per ``state_dict`` element), so the update is a handful
@@ -95,7 +98,7 @@ from yolofastest_torch.parallel import host_to_global, make_mesh, replicate
 from yolofastest_torch.parallel.halo import gather_rows
 from yolofastest_torch.parallel.mesh import check_image_rows
 from yolofastest_torch.train.schedule import make_lr_schedule
-from yolofastest_torch.utils.device import exact_fp32
+from yolofastest_torch.utils.device import deterministic_fp32
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 CHECKPOINT_FILE = "state.pt"
@@ -288,7 +291,7 @@ def make_train_step(model: torch.nn.Module, config: Config, lr_schedule: Callabl
             bound["tensors"] = (state.params, state.batch_stats)
             model.train()
         leaves = bound["leaves"]
-        with exact_fp32():
+        with deterministic_fp32():
             with record_function("train_step/forward"):
                 old_stats = state.batch_stats.clone()
                 heads = model(imgs)

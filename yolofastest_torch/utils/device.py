@@ -34,3 +34,23 @@ def exact_fp32():
     with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                      deterministic=cudnn.deterministic, allow_tf32=False):
         yield
+
+
+@contextlib.contextmanager
+def deterministic_fp32():
+    """:func:`exact_fp32` with cuDNN's deterministic algorithms and no
+    benchmark search inside the block: the block's backward gives the same
+    bits run to run, as a JAX step does on one device.
+
+    Without it, cuDNN's fp32 backward of the 1x1 and the full 3x3
+    convolutions (their weight gradients, and the data gradient of the
+    stride-2 3x3) sums partial products in an order that changes from run
+    to run: two train or QAT runs from one state part at the first step
+    (measured on an H100 with ``tools/torch_determinism_check.py
+    --find-op``; the loss, BatchNorm and the depthwise convolutions did not
+    differ).  The flags are restored on exit; the CPU does not read them.
+    """
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
+                     allow_tf32=False):
+        yield
