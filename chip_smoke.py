@@ -63,6 +63,12 @@ bf16, and of QAT from one state, bit for bit; the prune040 recipe at full
 depth through the ``prune`` and ``train`` commands with its golden recall;
 the full-scale recipe from random init, cut to 200 steps; the lite-512 zoo
 on the 512x640 val set through the fp Detector and the native engine),
+demos (short forms of ``tools/torch_run_train_demos.py``'s demos through
+the ``train`` command: ``--freeze backbone`` with the pinned modules bit
+for bit, ``--multiscale`` with the bucket of every batch against the
+loader's, ``--resume latest`` against the uninterrupted run bit for bit,
+the distillation arms from one init with the teacher's chain launches, and
+the lite architecture at 512x640 from its seed with a validation),
 parallel (data parallelism over a process group:
 two spawned gloo ranks on the one card, each with half of a global batch of
 16, float64 steps equal to one process to 1e-9, fp32 distillation steps
@@ -2896,6 +2902,227 @@ def finetune_path(card, counted) -> dict:
     return counts
 
 
+def demos_path(card, counted) -> dict:
+    """Short forms of ``tools/torch_run_train_demos.py``'s demos through the
+    ``train`` command: ``freeze`` (one epoch of 20 steps; the 48 pinned
+    modules bit-equal to the zoo, both heads moved), ``multiscale`` (two
+    epochs of 20 steps at B=8 on the demo's 160-item set: every bucket ran,
+    the bucket of each batch equals the loader's sequence drawn on the host;
+    and at each bucket's shape two float64 steps from the zoo on the card
+    and on the CPU: the losses, the statistics, and per leaf the weights'
+    step and Adam's first moment within 1e-9 relative L2, as the train
+    phase holds them),
+    ``scratch`` (random init, 2 epochs of 2 steps on a ``--copies 2`` set,
+    validating each epoch: ``--resume latest`` from epoch_0 equals the
+    uninterrupted run bit for bit, its metrics and validation too),
+    ``distill`` (one epoch of each arm from one init: 6 chain launches a step
+    for the teacher, none in the control) and ``lite512`` (one epoch of the
+    lite architecture at 512x640 from the lite seed, with its validation).
+    One JSON line; returns the launch counts of each run."""
+    import contextlib
+    import dataclasses
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    import torch_run_train_demos as demos
+    import torch
+
+    from yolofastest_torch.cli import main as cli_main
+    from yolofastest_torch.configs import get_config
+    from yolofastest_torch.data import DetectionLoader, VOCIndex
+    from yolofastest_torch.models import load_variables
+    from yolofastest_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    seconds, counts, out = {}, {}, {}
+    zoo = os.path.join(WEIGHTS, "yolofastest_256x320.npz")
+
+    def train(name, argv):
+        rec = {}
+        with demos.watch_trainer(rec), contextlib.redirect_stdout(io.StringIO()):
+            rc, counts[name] = counted(lambda: cli_main(argv + ["--device", "cuda"]))
+        check(rc == 0, f"demos {name}: train exited {rc}")
+        return rec
+
+    def preset_json(path, preset, **train_fields):
+        cfg = get_config(preset)
+        with open(path, "w") as f:
+            f.write(dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, **train_fields)).to_json())
+        return path
+
+    with tempfile.TemporaryDirectory(prefix="yf_demos_") as td:
+        sets = {}
+        for res, copies in (("256x320", 16), ("256x320", 8), ("256x320", 2), ("512x640", 16)):
+            d = demos.set_dir(td, res, copies)
+            with contextlib.redirect_stdout(io.StringIO()):
+                demos.run_tool(["tools/torch_make_finetune_set.py", "--out", d, "--copies",
+                                str(copies), "--res", res])
+            sets[(res, copies)] = (os.path.join(d, "train"), os.path.join(d, "val"))
+
+        def data(res, copies):
+            return ["--train-dir", sets[(res, copies)][0], "--val-dir", sets[(res, copies)][1]]
+
+        def run_dirs(name):
+            return ["--checkpoint-dir", os.path.join(td, name, "ck"), "--log-dir",
+                    os.path.join(td, name, "logs")]
+
+        # ------------------------------------------------ freeze, one epoch
+        t0 = time.perf_counter()
+        rec = train("freeze", ["train", "--config", "256x320", "--epochs", "1", "--batch-size",
+                               "16", "--warmup-min-iters", "60", "--freeze", "backbone",
+                               "--cache-images", "--pretrained", zoo, *data("256x320", 16),
+                               *run_dirs("freeze")])
+        f = demos.freeze_check(os.path.join(td, "freeze", "logs", "train_info.log"),
+                               os.path.join(td, "freeze", "ck", "epoch_0"), zoo)
+        out["freeze"] = {"steps": len(rec["hw"]), "pinned": len(f["pinned"]),
+                         "pinned_bit_equal": f["pinned_bit_equal"], "moved": f["moved"],
+                         "launches": counts["freeze"]}
+        seconds["freeze"] = time.perf_counter() - t0
+
+        # ------------------------------------- multiscale, two epochs at B=8
+        t0 = time.perf_counter()
+        rec = train("multiscale", ["train", "--config", "256x320", "--epochs", "2",
+                                   "--batch-size", "8", "--warmup-min-iters", "100",
+                                   "--multiscale", "1", "--cache-images", "--pretrained", zoo,
+                                   *data("256x320", 8), *run_dirs("multiscale")])
+        again = demos.loader_buckets(sets[("256x320", 8)][0], get_config("256x320"), 8, 2)
+        hw = rec["hw"]
+        with open(os.path.join(td, "multiscale", "logs", "train_info.log")) as f:
+            line = re.search(r"multi-scale training: (buckets .*)", f.read()).group(1)
+        # the step at each bucket's shape, card against CPU in float64: two
+        # steps from the zoo on the first two batches of that shape in the
+        # loader's sequence (chained over many steps, float64 runs part too:
+        # an ill-conditioned trajectory grows a 1e-16 difference each step).
+        # As the train phase: per leaf, leaving out the leaves whose float64
+        # gradient is zero (their Adam step is rounding noise)
+        ms_cfg = get_config("256x320")
+        ms_cfg = dataclasses.replace(ms_cfg, train=dataclasses.replace(
+            ms_cfg.train, batch_size=8, multiscale_steps=1, warmup_min_iters=100,
+            total_epochs=8))
+        zv = load_variables(zoo)
+        loader = DetectionLoader(VOCIndex(sets[("256x320", 8)][0], ms_cfg.io.class_names),
+                                 ms_cfg, seed=ms_cfg.train.seed, cache=True)
+        seq = [b for _ in range(2) for b in loader]
+        f64 = {}
+        for h, w in dict.fromkeys(hw):
+            first = next(i for i, (x, _) in enumerate(seq) if x.shape[1:3] == (h, w))
+            runs64 = {}
+            for dev in ("cuda", "cpu"):
+                t = Trainer(ms_cfg, batch_per_epoch=len(loader), variables=zv,
+                            device=dev).to_float64()
+                p0 = t.state.params.detach().to("cpu", copy=True)
+                losses = torch.stack([t.step(*b)["total"] for b in seq[first:first + 2]])
+                runs64[dev] = {"losses": losses.cpu(), "step": t.state.params.detach().cpu() - p0,
+                               "batch_stats": t.state.batch_stats.cpu(), "mu": t.state.mu.cpu()}
+            views = {dev: {k: t.layouts[0].views(r[k]) for k in ("step", "mu")}
+                     for dev, r in runs64.items()}
+            total = float(runs64["cpu"]["mu"].norm())
+            kept = [n for n, v in views["cpu"]["mu"].items() if float(v.norm()) >= 1e-9 * total]
+            f64[f"{h}x{w}"] = {
+                "losses": rel_l2(runs64["cuda"]["losses"], runs64["cpu"]["losses"]),
+                "batch_stats": rel_l2(runs64["cuda"]["batch_stats"],
+                                      runs64["cpu"]["batch_stats"]),
+                **{f"{k}_worst_leaf": max(rel_l2(views["cuda"][k][n], views["cpu"][k][n])
+                                          for n in kept) for k in ("step", "mu")},
+                "zero_gradient_leaves": len(views["cpu"]["mu"]) - len(kept)}
+        out["multiscale"] = {"steps": len(hw), "log_line": line,
+                             "first_use": {f"{h}x{w}": hw.index((h, w))
+                                           for h, w in dict.fromkeys(hw)},
+                             "sequence_equal_to_loader": hw == again,
+                             "float64_card_vs_cpu_2_steps": f64,
+                             "launches": counts["multiscale"]}
+        seconds["multiscale"] = time.perf_counter() - t0
+
+        # ----------------------- scratch: --resume latest after 1 of 2 epochs
+        t0 = time.perf_counter()
+        every = preset_json(os.path.join(td, "scratch.json"), "256x320", val_after_epoch=-1,
+                            log_every=1)
+        base = ["train", "--config-json", every, "--epochs", "2", "--batch-size", "16",
+                "--warmup-min-iters", "60", "--cache-images", "--max-to-keep", "0",
+                *data("256x320", 2)]
+        train("scratch_full", base + run_dirs("scratch_full"))
+        os.makedirs(os.path.join(td, "scratch_resumed", "ck"))
+        shutil.copytree(os.path.join(td, "scratch_full", "ck", "epoch_0"),
+                        os.path.join(td, "scratch_resumed", "ck", "epoch_0"))
+        train("scratch_resumed", base + run_dirs("scratch_resumed") + ["--resume", "latest"])
+        out["scratch"] = {
+            **demos.resume_check(os.path.join(td, "scratch_full"),
+                                 os.path.join(td, "scratch_resumed"), bpe=2, start_epoch=1),
+            "validations": demos.read_validations(os.path.join(td, "scratch_full", "logs",
+                                                               "train_info.log")),
+            "launches": {k: counts[k] for k in ("scratch_full", "scratch_resumed")}}
+        seconds["scratch"] = time.perf_counter() - t0
+
+        # ----------------------------------- distill: one epoch of each arm
+        t0 = time.perf_counter()
+        base = ["train", "--config", "lite-256x320", "--arch", "lite", "--epochs", "1",
+                "--batch-size", "16", "--warmup-min-iters", "60", "--cache-images",
+                *data("256x320", 16)]
+        arms = {}
+        for arm, extra in (("control", []), ("distill", ["--distill-teacher", zoo,
+                                                         "--distill-arch", "fastest",
+                                                         "--distill-weight", "1"])):
+            rec = train(f"distill_{arm}", base + extra + run_dirs(f"distill_{arm}"))
+            arms[arm] = {"steps": len(rec["hw"]), "fit_start": rec["fit_start"][0][:16],
+                         "launches": counts[f"distill_{arm}"]}
+        out["distill"] = arms
+        seconds["distill"] = time.perf_counter() - t0
+
+        # ------------------------- lite512: one epoch from the lite seed
+        t0 = time.perf_counter()
+        seed = os.path.join(td, "lite512_seed.npz")
+        with contextlib.redirect_stdout(io.StringIO()):
+            demos.run_tool(["tools/torch_make_lite_seed.py", "--out", seed, "--res", "512x640"])
+        every = preset_json(os.path.join(td, "lite512.json"), "lite-512x640",
+                            val_after_epoch=-1)
+        rec = train("lite512", ["train", "--config-json", every, "--arch", "lite", "--epochs",
+                                "1", "--batch-size", "32", "--warmup-min-iters", "60",
+                                "--cache-images", "--pretrained", seed, *data("512x640", 16),
+                                *run_dirs("lite512")])
+        out["lite512"] = {"steps": len(rec["hw"]), "validations": demos.read_validations(
+            os.path.join(td, "lite512", "logs", "train_info.log")),
+            "launches": counts["lite512"]}
+        seconds["lite512"] = time.perf_counter() - t0
+    seconds["phase"] = time.perf_counter() - t_phase
+
+    emit("demos", card=card, **out, seconds=seconds,
+         tolerance="freeze, scratch: bit for bit; multiscale: the loader's sequence exactly; "
+                   "distill: equal init digests, 6 chain launches a teacher step")
+    f = out["freeze"]
+    check(f["steps"] == 20 and f["pinned"] == 48 and f["pinned_bit_equal"] == 48
+          and f["moved"] == ["head_4", "head_5"], f"demos freeze: {f}")
+    m = out["multiscale"]
+    f64 = m["float64_card_vs_cpu_2_steps"]
+    check(len(f64) == 3 and all(v <= 1e-9 for d in f64.values() for k, v in d.items()
+                                if k != "zero_gradient_leaves"),
+          f"demos multiscale, float64 steps card vs CPU: {f64}")
+    check(m["steps"] == 40 and len(m["first_use"]) == 3 and m["sequence_equal_to_loader"]
+          and m["log_line"] == "buckets [(224, 288), (256, 320), (288, 352)], redrawn every "
+                               "10 batches", f"demos multiscale: {m}")
+    sc = out["scratch"]
+    check(sc["final_state"]["equal"] and sc["metric_lines_after_resume"] == 2
+          and not sc["metric_lines_differ"] and sc["validations_after_resume"] == 1
+          and not sc["validations_differ"] and len(sc["validations"]) == 2,
+          f"demos scratch resume: {sc}")
+    c, d = arms["control"], arms["distill"]
+    check(c["fit_start"] == d["fit_start"] and c["steps"] == d["steps"] == 20
+          and c["launches"]["res_chain_rows"] == 0
+          and d["launches"]["res_chain_rows"] == 6 * d["steps"], f"demos distill: {arms}")
+    lv = out["lite512"]
+    check(lv["steps"] == 9 and len(lv["validations"]) == 1
+          and lv["validations"][0]["mAP"] is not None
+          and lv["launches"]["nms"] == 1 and lv["launches"]["res_chain_rows"] == 0,
+          f"demos lite512: {lv}")
+    for name in ("freeze", "multiscale", "distill_control", "distill_distill"):
+        check(counts[name]["nms"] == 0, f"demos {name}: no validation, launches {counts[name]}")
+    check(counts["scratch_full"]["nms"] == 2 * 2 and counts["scratch_resumed"]["nms"] == 2,
+          f"demos scratch launches {counts}: one NMS a val batch")
+    return counts
+
+
 def profile_path(card, counted) -> dict:
     """The ``profile`` phase: ``utils.profiling.trace`` around one B=8
     ``run_raw`` of the fp Detector and one fp32 train step at B=8 (256x320
@@ -3708,6 +3935,9 @@ def main() -> int:
     # ------------------- the fine-tune set and the round-4 training recipes
     finetune = finetune_path(card, counted)
 
+    # ------------- the training demos of docs/train_demo_*, in short forms
+    demo_counts = demos_path(card, counted)
+
     # ------------------------------ data parallelism over a process group
     _, train_reference = parallel_path(card, counted)
 
@@ -3743,6 +3973,7 @@ def main() -> int:
                    "whole planes, fp32")
     summary[-1]["recipes_launches"] = {k: c["res_chain_rows"] for k, c in recipes.items()}
     summary[-1]["finetune_launches"] = {k: c["res_chain_rows"] for k, c in finetune.items()}
+    summary[-1]["demos_launches"] = {k: c["res_chain_rows"] for k, c in demo_counts.items()}
     nms64 = next(t for t in nms_timing if t["candidates"] == "golden_256x320" and t["B"] == 64)
     summary.append({
         "name": "nms_packed", "route": "cuda", "source": NMS_SOURCE,
@@ -3754,6 +3985,7 @@ def main() -> int:
         "bound_ms": nms64["bound_ms"], "bound_by": nms64["bound_by"], "library_ms": None,
         "recipes_launches": {k: c["nms"] for k, c in recipes.items()},
         "finetune_launches": {k: c["nms"] for k, c in finetune.items()},
+        "demos_launches": {k: c["nms"] for k, c in demo_counts.items()},
         "at": "golden 256x320 candidates tiled to B=64, K=128, max_det 64; ms from the profiler"})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

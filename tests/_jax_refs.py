@@ -23,9 +23,10 @@ fixture too, though it reads nothing from it: ``pytest tests/test_torch_*.py``
 took 61 s with the pool started at ``tests/test_torch_detector.py`` and 77 s
 with the pool started at the first module that reads it (on an 8-core CPU;
 39 s before the training tests came).  The longest references (the JAX
-calibrations, ~18 s of a worker, and the float64 JAX Trainer, ~29 s, which
-``tests/test_torch_spatial.py`` reads before its own module runs) are
-registered ``early``: submitted first, they are ready when their readers
+calibrations, ~18 s of a worker, the float64 JAX Trainer, ~29 s, which
+``tests/test_torch_spatial.py`` reads before its own module runs, and the
+float64 Trainer at the three multi-scale bucket shapes, one compile each)
+are registered ``early``: submitted first, they are ready when their readers
 come and hold up no shorter reference behind them.
 """
 

@@ -144,7 +144,7 @@ IMPORTS_CODE = (
     "sys.path.insert(0, 'tools')\n"
     "import torch_golden_suite, torch_make_int8_zoo, torch_make_lite_seed\n"
     "import torch_search_int8_recipe2, torch_search_pruned_int8\n"
-    "import torch_make_finetune_set, torch_determinism_check\n"
+    "import torch_make_finetune_set, torch_determinism_check, torch_run_train_demos\n"
     "bad = [m for m in sys.modules if 'flax' in m or 'yolofastest_tpu' in m]\n"
     "bad += [m for m in ('jax', 'jaxlib') if m in sys.modules]\n"
     "print(bad)\n"
@@ -164,7 +164,8 @@ def test_sources_import_no_jax():
     paths = [os.path.join(ROOT, "chip_smoke.py")] + [
         os.path.join(ROOT, "tools", f"torch_{t}.py") for t in (
             "golden_suite", "make_int8_zoo", "make_lite_seed", "search_int8_recipe2",
-            "search_pruned_int8", "make_finetune_set", "determinism_check")]
+            "search_pruned_int8", "make_finetune_set", "determinism_check",
+            "run_train_demos")]
     for d, _, files in os.walk(os.path.join(ROOT, "yolofastest_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     assert len(paths) > 15

@@ -1,9 +1,12 @@
 """`train` command: the port's Trainer on a VOC-XML or COCO dataset.
 
-The flags of ``python -m yolofastest_tpu train`` plus ``--device``.  Writes
-``train_info.log`` (the reference's log lines) and ``metrics.jsonl`` into
-``--log-dir`` and ``epoch_<n>/`` checkpoints into ``--checkpoint-dir``;
-``--resume latest`` picks up at the epoch after the newest one.
+The flags of ``python -m yolofastest_tpu train`` plus ``--device`` and
+``--float64``.  Writes ``train_info.log`` (the reference's log lines) and
+``metrics.jsonl`` into ``--log-dir`` and ``epoch_<n>/`` checkpoints into
+``--checkpoint-dir``; ``--resume latest`` picks up at the epoch after the
+newest one, with the loader's stream drawn past the epochs before it, so
+that a resumed run equals an uninterrupted one bit for bit where the steps
+are deterministic.
 """
 
 from __future__ import annotations
@@ -60,9 +63,13 @@ def add_train_parser(sub) -> None:
                    help="EMA decay ramp-in length in steps (default 2000)")
     t.add_argument("--warmup-min-iters", type=int, default=None,
                    help="linear LR warmup lower bound in iterations")
-    t.add_argument("--bf16", action="store_true",
-                   help="bfloat16 convolutions in the train step (autocast; weights, loss "
-                        "and BatchNorm statistics stay fp32)")
+    precision = t.add_mutually_exclusive_group()
+    precision.add_argument("--bf16", action="store_true",
+                           help="bfloat16 convolutions in the train step (autocast; weights, "
+                                "loss and BatchNorm statistics stay fp32)")
+    precision.add_argument("--float64", action="store_true",
+                           help="train in float64 (weights, state and step; validation in "
+                                "fp32): rounding far below fp32's, the arbiter of an fp32 run")
     t.add_argument("--distill-teacher", default=None,
                    help="weights whose head logits supervise the student beside the labels")
     t.add_argument("--distill-arch", default="fastest", choices=["fastest", "lite"],
@@ -159,10 +166,13 @@ def cmd_train(args) -> int:
         if path:
             trainer.restore_checkpoint(path)
             start_epoch = trainer.state.step // max(len(loader), 1)
+            loader.skip_epochs(start_epoch)  # the batches of an uninterrupted run
             logger.info("Resumed full state from %s (epoch %d)" % (path, start_epoch))
         else:
             logger.info("No checkpoint to resume; starting fresh")
 
+    if args.float64:
+        trainer.to_float64()
     metrics = MetricsWriter(args.log_dir)
     try:
         trainer.fit(loader, validator=validator, checkpoint_dir=args.checkpoint_dir,

@@ -293,15 +293,29 @@ class DetectionLoader:
                 load_one(k, i, rng)
         return imgs, tgts
 
-    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    def _draw_epoch(self):
+        """An epoch's draws from the loader's stream: its order and (None for
+        an empty epoch) its child rng, so epochs differ but runs are
+        reproducible."""
         order = np.arange(len(self.index))
         if self.shuffle:
             self.rng.shuffle(order)
+        if len(self) == 0:
+            return order, None
+        return order, np.random.default_rng(self.rng.integers(2**63))
+
+    def skip_epochs(self, n: int) -> None:
+        """Draw ``n`` epochs from the stream without loading them: a run
+        resumed at epoch ``n`` then sees the batches an uninterrupted run
+        sees there (its order, augmentation and multi-scale buckets)."""
+        for _ in range(n):
+            self._draw_epoch()
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        order, epoch_rng = self._draw_epoch()
         nb = len(self)
         if nb == 0:
             return
-        # Per-epoch child rng so epochs differ but runs are reproducible.
-        epoch_rng = np.random.default_rng(self.rng.integers(2**63))
 
         # Multi-scale: one (H, W) bucket per group of ``multiscale_every``
         # batches, drawn up front so the augmentation rng stream is

@@ -97,18 +97,18 @@ def fetch(det: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.cpu().numpy() for k, v in det.items()}
 
 
-def fp_recall(variables, res_or_cfg, device=None) -> Tuple[int, int]:
+def fp_recall(variables, res_or_cfg, device=None, arch: str = "fastest") -> Tuple[int, int]:
     """``(matched, rows)``: the fp32 golden recall of a trainable-layout
-    ``variables`` tree through the folded graph on ``device`` (the card
-    unless the caller asks for the CPU), as the deployed :class:`Detector`
-    runs it: on the card its six chains are the chain kernel and its NMS
-    the NMS kernel."""
+    ``variables`` tree of ``arch`` through the folded graph on ``device``
+    (the card unless the caller asks for the CPU), as the deployed
+    :class:`Detector` runs it: on the card its chains are the chain kernel
+    and its NMS the NMS kernel."""
     from yolofastest_torch.configs import get_config
     from yolofastest_torch.inference import Detector
 
     cfg = get_config(res_or_cfg) if isinstance(res_or_cfg, str) else res_or_cfg
     imgs, golden = golden_inputs(f"{cfg.io.input_hw[0]}x{cfg.io.input_hw[1]}")
-    det = Detector(cfg, variables=variables, device=device)
+    det = Detector(cfg, variables=variables, arch=arch, device=device)
     with torch.inference_mode():
         return recall_vs_golden(fetch(post(det.forward_heads(imgs), cfg.io)), golden)
 
